@@ -1,0 +1,545 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (spfx_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, each of which raises on a failed check (the script then exits
+non-zero):
+
+1. card: nvidia-smi's name and power limit, torch's device name;
+2. build: the CUDA kernels from spfx_torch/kernels/csrc, timed;
+3. kernels: every window_gather2 and potrf_inv call of the 48^3 f32 plan
+   (the starts of its UT buckets, the 32x32 diagonal blocks of its PC
+   buckets after assembly), in f32 and f64, against the plain PyTorch
+   versions on the card; then times of kernel, plain version and library
+   call at the main path's largest call, and each kernel's bound;
+4. main path: spfx_torch.Cholesky(laplacian_3d(48)) with the default Config,
+   launch counts against the plan, factorization times, GFLOP/s, peak
+   memory, and the refined solve's scaled residual (<= 1e-12);
+5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12;
+6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
+7. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+
+``--profile`` adds a torch.profiler pass over one 48^3 factorization and
+writes its kernel table to chiprun_out/chip_smoke_profile.txt.
+
+It needs one CUDA device and the spfx_torch package next to it; without
+either it prints no result and exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core rates, same source
+              "float64": 34e12}
+GRID = 48                          # the headline matrix, laplacian_3d(48)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str):
+    raise AssertionError(msg)
+
+
+# --------------------------------------------------------------------------
+# timing and bounds
+# --------------------------------------------------------------------------
+
+def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+    """Median device time of one call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, the graph replayed ``rounds`` times between CUDA events.
+    Replaying a graph keeps the host's launch cost out of the time, which
+    for these small launches is larger than the kernels themselves."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    del g
+    return statistics.median(ts)
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of the type."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / PEAK_FLOPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def gather_calls(plan, dev):
+    """(starts_a, win_a, starts_b, win_b) of every UT step of the plan."""
+    from spfx_torch.plan.schedule import ALIGN
+    out = []
+    for lp in plan.levels:
+        for ub in lp.updates:
+            t = ub.to(dev)
+            ext = ALIGN // ub.kp
+            out.append((t[3], (ub.mp + ext) * ub.kp, t[4],
+                        ub.tgt_cpos.shape[1] * ub.kp))
+    return out
+
+
+def gather_bytes(call, itemsize: int) -> float:
+    sa, wa, sb, wb = call
+    live = int((sa >= 0).sum()) * wa + int((sb >= 0).sum()) * wb
+    total = sa.shape[0] * wa + sb.shape[0] * wb
+    return float((live + total) * itemsize + 4 * (sa.shape[0] + sb.shape[0]))
+
+
+def max_diff(x, y) -> float:
+    return float((x - y).abs().max()) if x.numel() else 0.0
+
+
+def check_gathers(plan, dtype: str, dev, gen):
+    """Every window_gather2 call of the plan against the plain version,
+    bit for bit, on a seeded flat array; the one-set window_gather too.
+    Returns the flat array, the calls and the largest |kernel - plain| of
+    each wrapper (0 when they agree bit for bit)."""
+    import torch
+    from spfx_torch.kernels import gather
+    td = getattr(torch, dtype)
+    L = torch.randn(plan.storage, generator=gen, device=dev, dtype=td)
+    calls = gather_calls(plan, dev)
+    err2 = err1 = 0.0
+    for sa, wa, sb, wb in calls:
+        ka, kb = gather.window_gather2(L, sa, wa, sb, wb)
+        pa, pb = gather.window_gather2_plain(L, sa, wa, sb, wb)
+        err2 = max(err2, max_diff(ka, pa), max_diff(kb, pb))
+        if not (torch.equal(ka, pa) and torch.equal(kb, pb)):
+            fail(f"window_gather2 {dtype} differs from its plain version")
+        k1 = gather.window_gather(L, sa, wa)
+        err1 = max(err1, max_diff(k1, pa))
+        if not torch.equal(k1, pa):
+            fail(f"window_gather {dtype} differs from its plain version")
+    # an empty side on either hand
+    sa, wa, sb, wb = calls[0]
+    for a, b in ((sa[:0], sb), (sa, sb[:0])):
+        ka, kb = gather.window_gather2(L, a, wa, b, wb)
+        pa, pb = gather.window_gather2_plain(L, a, wa, b, wb)
+        if not (torch.equal(ka, pa) and torch.equal(kb, pb)):
+            fail(f"window_gather2 {dtype} with an empty side differs")
+    torch.cuda.synchronize()
+    return L, calls, {"window_gather2": err2, "window_gather": err1}
+
+
+def potrf_calls(ctx, dev):
+    """(wrel, D) of every potrf_inv call of the plan's PC steps, the
+    diagonal blocks taken from the assembled (not yet factored) matrix."""
+    import torch
+    from spfx_torch.kernels import blocks
+    plan = ctx.plan
+    L = blocks.assemble(
+        torch.as_tensor(plan.assembly_idx, device=dev),
+        ctx.entry_values(ctx.A), plan.storage)
+    out = []
+    for lp in plan.levels:
+        for pb in lp.panels:
+            widths = pb.to_u(dev)[0]
+            B, cp, rbp = widths.shape[0], pb.cp, pb.rbp
+            lo = int(pb.slab_lo[0])
+            blk = L[lo:lo + B * (cp + rbp) * cp].view(B, cp + rbp, cp)
+            for s in range(0, cp, blocks.NB):
+                e = min(s + blocks.NB, cp)
+                wrel = (widths - s).clamp(0, e - s).to(torch.int32)
+                out.append((wrel, blk[:, s:e, s:e].contiguous()))
+    return out
+
+
+def narrow_potrf_calls(dev, gen):
+    """potrf_inv at nb = 16 and 8 (panels narrower than the default
+    stride_min), seeded SPD blocks with junk above the diagonal."""
+    import torch
+    out = []
+    for nb in (16, 8):
+        X = torch.randn(64, nb, nb, generator=gen, device=dev,
+                        dtype=torch.float64)
+        D = X @ X.transpose(1, 2) + nb * torch.eye(nb, device=dev,
+                                                   dtype=torch.float64)
+        D = D + torch.triu(torch.full_like(D, 1e3), 1)
+        w = torch.randint(0, nb + 1, (64,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        out.append((w, D.float()))
+    return out
+
+
+def potrf_work(wrel, nb: int, item: int):
+    """(bytes, operations) that potrf_inv must spend on one call: each
+    block reads the lower triangle of its live w x w part, w(w+1)/2
+    values, and its wrel entry, and writes L and L^{-1}, 2 nb^2 values;
+    the Cholesky and the triangular inverse take w^3/3 flops each."""
+    w = wrel.clamp(0, nb).double()
+    nbytes = (float((w * (w + 1) / 2).sum()) * item
+              + 2.0 * wrel.shape[0] * nb * nb * item + 4.0 * wrel.shape[0])
+    return nbytes, float((2.0 / 3.0 * w ** 3).sum())
+
+
+def check_potrf(calls, dtype: str):
+    """Every potrf_inv call against the plain version, plus the
+    reconstructions L L^T = D and L^{-1} L = I on the live part.
+    Tolerance: f32 1e-4, f64 1e-12, relative to the largest entry; the two
+    sides take the same recurrence with sums in other orders."""
+    import torch
+    from spfx_torch.kernels import panel
+    td = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 1e-12
+    worst = 0.0
+    for wrel, D in calls:
+        D = D.to(td)
+        L, Li = panel.potrf_inv(wrel, D)
+        Lp, Lip = panel.potrf_inv_plain(wrel, D)
+        err = max(float((L - Lp).abs().max()), float((Li - Lip).abs().max()))
+        scale = max(float(Lp.abs().max()), float(Lip.abs().max()), 1.0)
+        if not err <= tol * scale:
+            fail(f"potrf_inv {dtype}: {err:.3e} from its plain version")
+        worst = max(worst, err)
+        Dm, cm = panel.masked_block(wrel, D)
+        Dm = (Dm + Dm.tril(-1).transpose(1, 2)).double()
+        live = (cm[:, :, None] & cm[:, None, :]).double()
+        pad = torch.diag_embed((~cm).double())
+        rec = (L.double() @ L.double().transpose(1, 2) - Dm) * live
+        inv = Li.double() @ (L.double() + pad) - torch.eye(
+            D.shape[1], dtype=torch.float64, device=D.device)
+        rtol = 1e-5 if dtype == "float32" else 1e-12
+        if not (float(rec.abs().max()) <= rtol * float(Dm.abs().max())
+                and float(inv.abs().max()) <= rtol * scale):
+            fail(f"potrf_inv {dtype}: reconstruction off")
+    torch.cuda.synchronize()
+    return worst
+
+
+def kernel_rows(L, gcalls, pcalls, dtype: str):
+    """Times (kernel, plain, library) and bounds at the main path's
+    largest call of each kernel."""
+    import torch
+    from spfx_torch.kernels import gather, panel
+    rows = {}
+    item = L.element_size()
+    sa, wa, sb, wb = max(gcalls, key=lambda c: gather_bytes(c, item))
+    idx_a = (torch.div(sa.clamp(min=0).long(), 1024, rounding_mode="floor")
+             * 1024)[:, None] + torch.arange(wa, device=L.device)
+    idx_b = (torch.div(sb.clamp(min=0).long(), 1024, rounding_mode="floor")
+             * 1024)[:, None] + torch.arange(wb, device=L.device)
+    nbytes = gather_bytes((sa, wa, sb, wb), item)
+    bms, by = bound(nbytes, 0.0, dtype)
+    rows["window_gather2"] = dict(
+        shape=f"Ba={sa.shape[0]} win_a={wa} Bb={sb.shape[0]} win_b={wb}",
+        ms=time_ms(lambda: gather.window_gather2(L, sa, wa, sb, wb)),
+        plain_ms=time_ms(lambda: gather.window_gather2_plain(L, sa, wa, sb,
+                                                             wb)),
+        library_ms=time_ms(lambda: (L[idx_a], L[idx_b])),
+        bound_ms=bms, bound_by=by)
+    nb1 = gather_bytes((sa, wa, sa[:0], wb), item)
+    bms, by = bound(nb1, 0.0, dtype)
+    rows["window_gather"] = dict(
+        shape=f"B={sa.shape[0]} win={wa}",
+        ms=time_ms(lambda: gather.window_gather(L, sa, wa)),
+        plain_ms=time_ms(lambda: gather.window_gather_plain(L, sa, wa)),
+        library_ms=time_ms(lambda: L[idx_a]),
+        bound_ms=bms, bound_by=by)
+    wrel, D = max(pcalls, key=lambda c: c[0].shape[0])
+    D = D.to(L.dtype)
+    B, nb = D.shape[0], D.shape[1]
+    bms, by = bound(*potrf_work(wrel, nb, item), dtype)
+    Dm, _ = panel.masked_block(wrel, D)
+    eye = torch.eye(nb, dtype=D.dtype, device=D.device).expand(B, nb, nb)
+
+    def library():
+        Lc, _ = torch.linalg.cholesky_ex(Dm)
+        return torch.linalg.solve_triangular(Lc, eye, upper=False)
+
+    rows["potrf_inv"] = dict(
+        shape=f"B={B} nb={nb}",
+        ms=time_ms(lambda: panel.potrf_inv(wrel, D)),
+        plain_ms=time_ms(lambda: panel.potrf_inv_plain(wrel, D), reps=2),
+        library_ms=time_ms(library),
+        bound_ms=bms, bound_by=by)
+    return rows
+
+
+def path_kernel_ms(L, gcalls, pcalls, dtype: str):
+    """Device time and bound of all of the path's calls of each kernel:
+    every call of one factorization, captured in one graph and replayed."""
+    from spfx_torch.kernels import gather, panel
+    item = L.element_size()
+
+    def gathers():
+        for c in gcalls:
+            gather.window_gather2(L, *c)
+
+    pcd = [(w, D.to(L.dtype)) for w, D in pcalls]
+
+    def potrfs():
+        for w, D in pcd:
+            panel.potrf_inv(w, D)
+
+    gb = sum(gather_bytes(c, item) for c in gcalls)
+    work = [potrf_work(w, D.shape[1], item) for w, D in pcd]
+    pbytes = sum(b for b, _ in work)
+    pops = sum(o for _, o in work)
+    return {"window_gather2": (time_ms(gathers, reps=1, rounds=3),
+                               bound(gb, 0.0, dtype)[0]),
+            "potrf_inv": (time_ms(potrfs, reps=1, rounds=3),
+                          bound(pbytes, pops, dtype)[0])}
+
+
+# --------------------------------------------------------------------------
+# phases 4-6: the main path
+# --------------------------------------------------------------------------
+
+def predicted_launches(plan) -> dict:
+    ut = sum(len(lp.updates) for lp in plan.levels)
+    pi = sum(-(-pb.cp // 32) for lp in plan.levels for pb in lp.panels)
+    return {"window_gather2": ut, "window_gather": 0, "potrf_inv": pi}
+
+
+def plan_summary(ctx) -> dict:
+    """The plan's sizes: what one factorization launches and moves."""
+    plan = ctx.plan
+    ut = [ub for lp in plan.levels for ub in lp.updates]
+    pc = [pb for lp in plan.levels for pb in lp.panels]
+    return dict(n=plan.n, nnzL=int(ctx.sym.nnzL), flops=plan.flops,
+                levels=len(plan.levels), ut_steps=len(ut),
+                pc_steps=len(pc),
+                gather_windows=2 * sum(len(ub.kw) for ub in ut),
+                potrf_calls=sum(-(-pb.cp // 32) for pb in pc),
+                potrf_blocks=sum(len(pb.widths) * -(-pb.cp // 32)
+                                 for pb in pc),
+                storage=plan.storage)
+
+
+def main_path(ctx, A, label: str, repeats: int = 3):
+    """Factorize (launch counts checked against the plan), time repeats,
+    solve with refinement; returns (factor, launches, report)."""
+    import torch
+    from spfx_torch import scaled_residual, synth_rhs
+    from spfx_torch.kernels import _cuda
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    f = ctx.factorize(A)
+    launches = _cuda.launch_counts()
+    first = ctx.factorize_time
+    want = predicted_launches(ctx.plan)
+    if launches != want:
+        fail(f"{label}: launches {launches}, the plan predicts {want}")
+    ts = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = ctx.factorize(A)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    med = statistics.median(ts)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(f.L).all()):
+        fail(f"{label}: factor has non-finite values")
+    b = synth_rhs(A)
+    t0 = time.perf_counter()
+    x0 = f.solve(b, refine=0)
+    x = f.solve(b)
+    solve_s = time.perf_counter() - t0
+    r0 = scaled_residual(A, x0, b)
+    res = scaled_residual(A, x, b)
+    rep = dict(plan_summary(ctx), analyze_s=ctx.analyze_time, plan_s=ctx.plan_time,
+               first_factorize_s=first, factorize_s=med, factorize_all_s=ts,
+               gflops=ctx.plan.flops / med / 1e9, peak_mem_gb=peak / 1e9,
+               solve_s=solve_s, residual_norefine=r0, residual=res,
+               launches=launches)
+    log(f"[{label}] " + json.dumps(rep))
+    if not res <= 1e-12:
+        fail(f"{label}: scaled residual {res:.3e} > 1e-12")
+    return f, launches, rep
+
+
+def profile_pass(ctx, A):
+    """One factorization under torch.profiler; the kernel table goes to
+    chiprun_out/chip_smoke_profile.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ctx.factorize(A)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ctx.factorize(A)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           "chip_smoke_profile.txt"), "w") as fh:
+        fh.write(table)
+    log(table[:6000])
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def device():
+    import torch
+    return torch.device("cuda", 0)
+
+
+# --------------------------------------------------------------------------
+
+def main(argv) -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "spfx_torch")):
+        print("chip_smoke: spfx_torch is not next to this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
+    import spfx_torch
+    from spfx_torch import Config
+    from spfx_torch.io import generate
+    from spfx_torch.kernels import _cuda
+
+    # 1. card
+    smi = card_line()
+    dev = device()
+    log(f"[card] {smi}")
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count "
+        f"{torch.cuda.device_count()}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = _cuda.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built)}")
+    for name, out in sorted(built.items()):
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # 3. kernels against their plain versions, at the 48^3 plan's calls
+    A = generate.laplacian_3d(GRID)
+    ctx = spfx_torch.Cholesky(A, Config(), device=dev)
+    log(f"[plan] grid {GRID}^3 analyze {ctx.analyze_time:.2f} s plan "
+        f"{ctx.plan_time:.2f} s " + json.dumps(plan_summary(ctx)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    pcalls = potrf_calls(ctx, dev)
+    errs = {}
+    rows = None
+    for dtype in ("float32", "float64"):
+        t0 = time.perf_counter()
+        L, gcalls, gerr = check_gathers(ctx.plan, dtype, dev, gen)
+        errs.update({(k, dtype): v for k, v in gerr.items()})
+        errs[("potrf_inv", dtype)] = check_potrf(pcalls, dtype)
+        check_potrf(narrow_potrf_calls(dev, gen), dtype)
+        log(f"[kernels] {dtype}: {len(gcalls)} window_gather2 calls "
+            f"bit-identical, {len(pcalls)} potrf_inv calls max abs err "
+            f"{errs[('potrf_inv', dtype)]:.3e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if dtype == "float32":
+            rows = kernel_rows(L, gcalls, pcalls, dtype)
+            path = path_kernel_ms(L, gcalls, pcalls, dtype)
+            for k, (ms, bms) in path.items():
+                rows[k]["path_ms"] = ms
+                rows[k]["path_bound_ms"] = bms
+            log("[kernels] f32 timing " + json.dumps(rows))
+        del L
+    torch.cuda.empty_cache()
+
+    # 4. main path, 48^3 f32 with the default Config
+    _, launches, rep48 = main_path(ctx, A, f"main {GRID}^3 float32")
+    if "--profile" in argv:
+        profile_pass(ctx, A)
+    del ctx
+    torch.cuda.empty_cache()
+
+    # 5. f64 at 32^3
+    A32 = generate.laplacian_3d(32)
+    ctx64 = spfx_torch.Cholesky(A32, Config(dtype="float64"), device=dev)
+    main_path(ctx64, A32, "f64 32^3 float64")
+    del ctx64
+
+    # 6. the card against the CPU (plain versions), 12^3 f64
+    A12 = generate.laplacian_3d(12)
+    cfg = Config(dtype="float64")
+    Lg = spfx_torch.cholesky(A12, cfg, device=dev).L.cpu()
+    Lc = spfx_torch.cholesky(A12, cfg, device="cpu").L
+    rel = float((Lg - Lc).abs().max() / Lc.abs().max())
+    log(f"[card vs cpu] 12^3 f64 max rel diff {rel:.3e}")
+    if not rel <= 1e-10:
+        fail(f"card and CPU factors differ by {rel:.3e}")
+
+    # 7. the kernels line
+    src = {"window_gather2": "spfx_torch/kernels/csrc/window_gather.cu",
+           "window_gather": "spfx_torch/kernels/csrc/window_gather.cu",
+           "potrf_inv": "spfx_torch/kernels/csrc/potrf_inv.cu"}
+    rep_ = {"window_gather2": "spfx/kernels/pallas_blocks.py:100",
+            "window_gather": "spfx/kernels/pallas_blocks.py:48",
+            "potrf_inv": "spfx/kernels/pallas_blocks.py:1074"}
+    kernels = []
+    for name in ("window_gather2", "window_gather", "potrf_inv"):
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src[name],
+            "replaces": rep_[name], "launches": launches[name],
+            "max_abs_err": errs[(name, "float32")], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"], "path_ms": r.get("path_ms"),
+            "path_bound_ms": r.get("path_bound_ms")})
+    for k in kernels:
+        for v in k.values():
+            if isinstance(v, float) and not math.isfinite(v):
+                fail(f"non-finite number in the kernels line: {k}")
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,61 @@
+"""Carrying state between the JAX package and the port.
+
+The flat factor plus the plan is this system's whole state: both packages
+build the same plan from the same matrix and Config, so a factor computed
+by one can be used by the other slot for slot. This module takes numpy
+arrays only and imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spfx_torch.chol.factorize import Cholesky, CholeskyFactor
+
+_BUCKET_TABLES = ("sns", "widths", "nbelow", "diag_start", "below_start",
+                  "xcols", "xrows", "slab_lo", "kw", "mrows", "src_start",
+                  "tgt_lrow", "tgt_cpos", "ea_idx", "ea_rbase", "ea_rel",
+                  "ea_ng", "head_start", "rstart", "diag_row_start",
+                  "below_row_start", "src_row_start", "tgt_row_start")
+_BUCKET_STATICS = ("cp", "rbp", "mp", "kp", "csp", "slab_rows", "flops")
+_PLAN_TABLES = ("assembly_idx", "assembly_idx_u", "offsets", "strides",
+                "below_shift", "rows_sn")
+_PLAN_STATICS = ("n", "xsize", "slack", "storage", "flops")
+
+
+def factor_from_numpy(ctx: Cholesky, L_flat, device=None) -> CholeskyFactor:
+    """A port factor of ``ctx``'s matrix from a flat factor array computed
+    on the same plan (e.g. ``np.asarray(spfx_factor.L)``)."""
+    L_flat = np.asarray(L_flat)
+    if L_flat.shape != (ctx.plan.storage,):
+        raise ValueError(f"flat factor has shape {L_flat.shape}, the plan "
+                         f"stores {ctx.plan.storage} values")
+    dev = ctx.device if device is None else torch.device(device)
+    L = torch.tensor(np.asarray(L_flat, dtype=ctx.config.dtype), device=dev)
+    return CholeskyFactor(ctx.A, ctx.sym, ctx.plan, L, ctx.config)
+
+
+def plan_arrays(plan) -> dict:
+    """Every table and static of a plan as numpy, keyed by name
+    ("L<level>.U<i>.<field>" / "L<level>.P<i>.<field>" for buckets), so two
+    plans can be compared table by table."""
+    out = {}
+    for name in _PLAN_STATICS:
+        out[name] = np.asarray(getattr(plan, name))
+    for name in _PLAN_TABLES:
+        v = getattr(plan, name)
+        if v is not None:
+            out[name] = np.asarray(v)
+    out["nlevels"] = np.asarray(len(plan.levels))
+    for lv, lp in enumerate(plan.levels):
+        for kind, bucket_list in (("U", lp.updates), ("P", lp.panels)):
+            out[f"L{lv}.{kind}count"] = np.asarray(len(bucket_list))
+            for i, b in enumerate(bucket_list):
+                pre = f"L{lv}.{kind}{i}."
+                out[pre + "type"] = np.asarray(type(b).__name__)
+                for name in _BUCKET_TABLES + _BUCKET_STATICS:
+                    v = getattr(b, name, None)
+                    if v is not None:
+                        out[pre + name] = np.asarray(v)
+    return out

@@ -1,0 +1,126 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``spfx_torch/kernels/csrc/`` compiles with ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface, in the
+package's build directory ``spfx_torch/_build/``. The builds of all sources
+start together, one ``nvcc`` each, at the first launch of any kernel (or
+when ``build()`` is called). The libraries load with ``ctypes``: every
+pointer and the stream go as ``c_void_p``, and every C entry point returns
+``cudaGetLastError()``, which ``check()`` turns into an exception.
+
+Every wrapper counts its launches here, so a run can show which kernels
+its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+
+from spfx_torch.cpp.build import build_dir
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_c_int = ctypes.c_int
+_c_ll = ctypes.c_longlong
+_vp = ctypes.c_void_p
+
+# C signatures of the entry points, by library
+_SIGNATURES = {
+    "window_gather": {
+        "spfx_window_gather2": [_vp, _c_ll, _c_int, _vp, _c_int, _c_ll, _vp,
+                                _vp, _c_int, _c_ll, _vp, _vp],
+    },
+    "potrf_inv": {
+        "spfx_potrf_inv_f32": [_vp, _vp, _vp, _vp, _c_int, _c_int, _vp],
+        "spfx_potrf_inv_f64": [_vp, _vp, _vp, _vp, _c_int, _c_int, _vp],
+    },
+}
+
+_libs: dict = {}
+build_log: dict = {}          # source name -> nvcc's output (ptxas -v)
+
+_launches = {"window_gather2": 0, "window_gather": 0, "potrf_inv": 0}
+
+
+def count(name: str) -> None:
+    """Record one launch of kernel ``name`` (called right at the launch)."""
+    _launches[name] += 1
+
+
+def launch_counts() -> dict:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return exe
+
+
+def _out_path(name: str) -> str:
+    return os.path.join(build_dir(), f"lib{name}.so")
+
+
+def build() -> dict:
+    """Compile every stale source, all ``nvcc`` processes started together.
+    Returns {source name: nvcc output} for the sources it compiled; raises
+    on any failure."""
+    todo = []
+    for src in sorted(glob.glob(os.path.join(_CSRC, "*.cu"))):
+        name = os.path.splitext(os.path.basename(src))[0]
+        out = _out_path(name)
+        if os.path.exists(out) and os.path.getmtime(out) > \
+                os.path.getmtime(src):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        todo.append((name, out, tmp,
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in todo:
+        log, _ = proc.communicate()
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return build_log
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name`` (building all stale sources
+    first)."""
+    if name not in _libs:
+        build()
+        so = ctypes.CDLL(_out_path(name))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(so, fn).argtypes = argtypes
+            getattr(so, fn).restype = ctypes.c_int
+        _libs[name] = so
+    return _libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
