@@ -8,20 +8,31 @@ non-zero):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
 2. build: the CUDA kernels from spfx_torch/kernels/csrc, timed;
-3. kernels: every window_gather2 and potrf_inv call of the 48^3 f32 plan
-   (the starts of its UT buckets, the 32x32 diagonal blocks of its PC
-   buckets after assembly), in f32 and f64, against the plain PyTorch
-   versions on the card; then times of kernel, plain version and library
-   call at the main path's largest call, and each kernel's bound;
-4. main path: spfx_torch.Cholesky(laplacian_3d(48)) with the default Config,
-   launch counts against the plan, factorization times, GFLOP/s, peak
-   memory, and the refined solve's scaled residual (<= 1e-12);
+3. kernels: every window_gather2 and potrf_inv call of the 48^3 f32
+   Cholesky plan (the starts of its UT buckets, the 32x32 diagonal blocks
+   of its PC buckets after assembly), in f32 and f64, against the plain
+   PyTorch versions on the card; then times of kernel, plain version and
+   library call at the main path's largest call, and each kernel's bound;
+3b. the same for getrf_inv over every call of the 48^3 f32 LU plan (the
+   32x32 diagonal blocks of the LU fronts of its PC buckets, built from
+   the assembled Lx and Ux), plus seeded blocks at nb = 16 and 8;
+4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
+   default Config, launch counts against the plan, factorization times,
+   GFLOP/s, peak memory, and the refined solve's scaled residual
+   (<= 1e-12);
+4b. LU main path: spfx_torch.LU(laplacian_3d(48)) with the default Config,
+   the same checks;
 5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12;
+5b. f64 LU at 32^3 with unsymmetric values (every entry above the diagonal
+   of laplacian_3d(32) scaled by a factor from U[0.25, 1]), residual
+   <= 1e-12;
 6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
+6b. the same for LU, on the unsymmetric 12^3 matrix, both flat factors;
 7. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
-``--profile`` adds a torch.profiler pass over one 48^3 factorization and
-writes its kernel table to chiprun_out/chip_smoke_profile.txt.
+``--profile`` adds a torch.profiler pass over one 48^3 factorization of
+each path and writes their kernel tables to
+chiprun_out/chip_smoke_profile{,_lu}.txt.
 
 It needs one CUDA device and the spfx_torch package next to it; without
 either it prints no result and exits 2.
@@ -43,6 +54,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core rates, same source
               "float64": 34e12}
 GRID = 48                          # the headline matrix, laplacian_3d(48)
+GRID_F64 = 32                      # the double-precision cases
+GRID_CPU = 12                      # card against CPU
 
 
 def log(*a):
@@ -57,12 +70,28 @@ def fail(msg: str):
 # timing and bounds
 # --------------------------------------------------------------------------
 
-def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+def time_ms(fn, reps: int = 10, rounds: int = 5, graph: bool = True) -> float:
     """Median device time of one call of ``fn``: ``reps`` calls captured in
     one CUDA graph, the graph replayed ``rounds`` times between CUDA events.
     Replaying a graph keeps the host's launch cost out of the time, which
-    for these small launches is larger than the kernels themselves."""
+    for these small launches is larger than the kernels themselves.
+    ``graph=False`` times ``reps`` eager calls between the events instead,
+    for a call that cannot be captured (its host launches then count)."""
     import torch
+    if not graph:
+        for _ in range(3):
+            fn()
+        ts = []
+        for _ in range(rounds):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b) / reps)
+        return statistics.median(ts)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -196,6 +225,49 @@ def narrow_potrf_calls(dev, gen):
     return out
 
 
+def getrf_calls(ctx, dev):
+    """(wrel, D) of every getrf_inv call of the LU plan's PC steps: the
+    diagonal blocks of each bucket's LU front, built from the assembled
+    (not yet factored) Lx and Ux."""
+    import torch
+    from spfx_torch.kernels import blocks
+    plan = ctx.plan
+    Lx, Ux = (blocks.assemble(torch.as_tensor(idx, device=dev), v,
+                              plan.storage)
+              for idx, v in zip((plan.assembly_idx, plan.assembly_idx_u),
+                                ctx.entry_values(ctx.A)))
+    out = []
+    for lp in plan.levels:
+        for pb in lp.panels:
+            widths = pb.to_u(dev)[0]
+            B, cp, rbp = widths.shape[0], pb.cp, pb.rbp
+            lo = int(pb.slab_lo[0])
+            bl, bu = (x[lo:lo + B * (cp + rbp) * cp].view(B, cp + rbp, cp)
+                      for x in (Lx, Ux))
+            Mf, _ = blocks.lu_front(bl[:, :cp], bu[:, :cp], widths)
+            for s in range(0, cp, blocks.NB):
+                e = min(s + blocks.NB, cp)
+                wrel = (widths - s).clamp(0, e - s).to(torch.int32)
+                out.append((wrel, Mf[:, s:e, s:e].contiguous()))
+    return out
+
+
+def narrow_getrf_calls(dev, gen):
+    """getrf_inv at nb = 16 and 8: seeded diagonally dominant blocks with
+    both triangles filled, wrel covering 0, 1, nb - 1 and nb."""
+    import torch
+    out = []
+    for nb in (16, 8):
+        D = torch.randn(64, nb, nb, generator=gen, device=dev,
+                        dtype=torch.float64)
+        D = D + torch.diag_embed(D.abs().sum(2) + 1.0)
+        w = torch.randint(0, nb + 1, (64,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w[:4] = torch.tensor([0, 1, nb - 1, nb], dtype=torch.int32)
+        out.append((w, D.float()))
+    return out
+
+
 def potrf_work(wrel, nb: int, item: int):
     """(bytes, operations) that potrf_inv must spend on one call: each
     block reads the lower triangle of its live w x w part, w(w+1)/2
@@ -205,6 +277,95 @@ def potrf_work(wrel, nb: int, item: int):
     nbytes = (float((w * (w + 1) / 2).sum()) * item
               + 2.0 * wrel.shape[0] * nb * nb * item + 4.0 * wrel.shape[0])
     return nbytes, float((2.0 / 3.0 * w ** 3).sum())
+
+
+def getrf_work(wrel, nb: int, item: int):
+    """(bytes, operations) that getrf_inv must spend on one call: each
+    block reads its live w x w part (both triangles), w^2 values, and its
+    wrel entry, and writes L, U, L^{-1} and U^{-1}, 4 nb^2 values; the LU
+    takes 2/3 w^3 flops and the two triangular inverses w^3/3 each."""
+    w = wrel.clamp(0, nb).double()
+    nbytes = (float((w * w).sum()) * item
+              + 4.0 * wrel.shape[0] * nb * nb * item + 4.0 * wrel.shape[0])
+    return nbytes, float((2.0 / 3.0 * w ** 3 + 2.0 * w ** 3 / 3.0).sum())
+
+
+def check_getrf(calls, dtype: str):
+    """Every getrf_inv call against the plain version, plus the
+    reconstructions L U = D, L^{-1} L = I and U U^{-1} = I on the live part
+    (padding put back as identity). Tolerance: f32 1e-4, f64 1e-12,
+    relative to the largest entry of the outputs; the two sides take the
+    same recurrences with sums in other orders (and the card fuses
+    multiply-adds). The reconstructions: f32 1e-5, f64 1e-12, relative to
+    the product of the factors' largest entries."""
+    import torch
+    from spfx_torch.kernels import panel
+    td = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 1e-12
+    rtol = 1e-5 if dtype == "float32" else 1e-12
+    worst = 0.0
+    for wrel, D in calls:
+        D = D.to(td)
+        outs = panel.getrf_inv(wrel, D)
+        refs = panel.getrf_inv_plain(wrel, D)
+        err = max(max_diff(o, r) for o, r in zip(outs, refs))
+        scale = max(max(float(r.abs().max()) for r in refs), 1.0)
+        if not err <= tol * scale:
+            fail(f"getrf_inv {dtype}: {err:.3e} from its plain version")
+        worst = max(worst, err)
+        L, U, Li, Ui = (o.double() for o in outs)
+        Dm, cm = panel.masked_full_block(wrel, D.double())
+        live = (cm[:, :, None] & cm[:, None, :]).double()
+        pad = torch.diag_embed((~cm).double())
+        eye = torch.eye(D.shape[1], dtype=torch.float64, device=D.device)
+        mx = lambda t: float(t.abs().max())
+        for what, res, bnd in (
+                ("L U = D", (L @ U - Dm) * live, mx(L) * mx(U)),
+                ("Linv L = I", Li @ (L + pad) - eye, mx(Li) * mx(L + pad)),
+                ("U Uinv = I", (U + pad) @ Ui - eye, mx(U + pad) * mx(Ui))):
+            if not mx(res) <= rtol * max(bnd, 1.0):
+                fail(f"getrf_inv {dtype}: {what} off by {mx(res):.3e}")
+    torch.cuda.synchronize()
+    return worst
+
+
+def getrf_rows(L, gcalls, dtype: str):
+    """Times (kernel, plain, library) and bound of getrf_inv at the LU
+    path's largest call, and over all of its calls in one graph."""
+    import torch
+    from spfx_torch.kernels import panel
+    item = L.element_size()
+    wrel, D = max(gcalls, key=lambda c: c[0].shape[0])
+    D = D.to(L.dtype)
+    B, nb = D.shape[0], D.shape[1]
+    bms, by = bound(*getrf_work(wrel, nb, item), dtype)
+    Dm, _ = panel.masked_full_block(wrel, D)
+    eye = torch.eye(nb, dtype=D.dtype, device=D.device).expand(B, nb, nb)
+
+    def library():
+        LU, _, _ = torch.linalg.lu_factor_ex(Dm, pivot=False)
+        return (torch.linalg.solve_triangular(LU, eye, upper=False,
+                                              unitriangular=True),
+                torch.linalg.solve_triangular(LU, eye, upper=True))
+
+    row = dict(
+        shape=f"B={B} nb={nb}",
+        ms=time_ms(lambda: panel.getrf_inv(wrel, D)),
+        plain_ms=time_ms(lambda: panel.getrf_inv_plain(wrel, D), reps=2),
+        # lu_factor_ex(pivot=False) cannot be captured in a CUDA graph
+        library_ms=time_ms(library, graph=False),
+        bound_ms=bms, bound_by=by)
+    pcd = [(w, d.to(L.dtype)) for w, d in gcalls]
+
+    def getrfs():
+        for w, d in pcd:
+            panel.getrf_inv(w, d)
+
+    work = [getrf_work(w, d.shape[1], item) for w, d in pcd]
+    row["path_ms"] = time_ms(getrfs, reps=1, rounds=3)
+    row["path_bound_ms"] = bound(sum(b for b, _ in work),
+                                 sum(o for _, o in work), dtype)[0]
+    return row
 
 
 def check_potrf(calls, dtype: str):
@@ -320,10 +481,21 @@ def path_kernel_ms(L, gcalls, pcalls, dtype: str):
 # phases 4-6: the main path
 # --------------------------------------------------------------------------
 
-def predicted_launches(plan) -> dict:
+def is_lu(ctx) -> bool:
+    import spfx_torch
+    return isinstance(ctx, spfx_torch.LU)
+
+
+def predicted_launches(ctx) -> dict:
+    """Launches of one factorization: one window_gather2 per UT step and
+    factor array, one diagonal-block kernel per 32 columns of each PC
+    step (getrf_inv for LU, potrf_inv for Cholesky)."""
+    plan = ctx.plan
     ut = sum(len(lp.updates) for lp in plan.levels)
     pi = sum(-(-pb.cp // 32) for lp in plan.levels for pb in lp.panels)
-    return {"window_gather2": ut, "window_gather": 0, "potrf_inv": pi}
+    lu = is_lu(ctx)
+    return {"window_gather2": ut * (2 if lu else 1), "window_gather": 0,
+            "potrf_inv": 0 if lu else pi, "getrf_inv": pi if lu else 0}
 
 
 def plan_summary(ctx) -> dict:
@@ -331,19 +503,25 @@ def plan_summary(ctx) -> dict:
     plan = ctx.plan
     ut = [ub for lp in plan.levels for ub in lp.updates]
     pc = [pb for lp in plan.levels for pb in lp.panels]
+    arrays = 2 if is_lu(ctx) else 1
     return dict(n=plan.n, nnzL=int(ctx.sym.nnzL), flops=plan.flops,
                 levels=len(plan.levels), ut_steps=len(ut),
-                pc_steps=len(pc),
-                gather_windows=2 * sum(len(ub.kw) for ub in ut),
-                potrf_calls=sum(-(-pb.cp // 32) for pb in pc),
-                potrf_blocks=sum(len(pb.widths) * -(-pb.cp // 32)
-                                 for pb in pc),
+                pc_steps=len(pc), factor_arrays=arrays,
+                gather_windows=2 * arrays * sum(len(ub.kw) for ub in ut),
+                diag_block_calls=sum(-(-pb.cp // 32) for pb in pc),
+                diag_blocks=sum(len(pb.widths) * -(-pb.cp // 32)
+                                for pb in pc),
                 storage=plan.storage)
 
 
+def factor_arrays(f):
+    return (f.Lx, f.Ux) if hasattr(f, "Ux") else (f.L,)
+
+
 def main_path(ctx, A, label: str, repeats: int = 3):
-    """Factorize (launch counts checked against the plan), time repeats,
-    solve with refinement; returns (factor, launches, report)."""
+    """Factorize (launch counts checked against the plan: every kernel of
+    the path launched, as often as the plan says), time repeats, solve
+    with refinement; returns (factor, launches, report)."""
     import torch
     from spfx_torch import scaled_residual, synth_rhs
     from spfx_torch.kernels import _cuda
@@ -353,9 +531,11 @@ def main_path(ctx, A, label: str, repeats: int = 3):
     f = ctx.factorize(A)
     launches = _cuda.launch_counts()
     first = ctx.factorize_time
-    want = predicted_launches(ctx.plan)
+    want = predicted_launches(ctx)
     if launches != want:
         fail(f"{label}: launches {launches}, the plan predicts {want}")
+    if not all(launches[k] > 0 for k, v in want.items() if v):
+        fail(f"{label}: a kernel of the path was not launched: {launches}")
     ts = []
     for _ in range(repeats):
         torch.cuda.synchronize()
@@ -365,7 +545,7 @@ def main_path(ctx, A, label: str, repeats: int = 3):
         ts.append(time.perf_counter() - t0)
     med = statistics.median(ts)
     peak = torch.cuda.max_memory_allocated()
-    if not bool(torch.isfinite(f.L).all()):
+    if not all(bool(torch.isfinite(t).all()) for t in factor_arrays(f)):
         fail(f"{label}: factor has non-finite values")
     b = synth_rhs(A)
     t0 = time.perf_counter()
@@ -385,9 +565,9 @@ def main_path(ctx, A, label: str, repeats: int = 3):
     return f, launches, rep
 
 
-def profile_pass(ctx, A):
+def profile_pass(ctx, A, name: str):
     """One factorization under torch.profiler; the kernel table goes to
-    chiprun_out/chip_smoke_profile.txt."""
+    chiprun_out/<name>.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ctx.factorize(A)
@@ -399,10 +579,22 @@ def profile_pass(ctx, A):
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out",
-                           "chip_smoke_profile.txt"), "w") as fh:
+    with open(os.path.join(ROOT, "chiprun_out", f"{name}.txt"), "w") as fh:
         fh.write(table)
     log(table[:6000])
+
+
+def unsym_laplacian(k: int):
+    """laplacian_3d(k) with every entry above the diagonal scaled by a
+    factor from U[0.25, 1] (numpy default_rng(0)): unsymmetric values on a
+    symmetric pattern, so swapped L and U sides would show."""
+    import numpy as np
+    import scipy.sparse as sp
+    from spfx_torch.io import generate
+    A = generate.laplacian_3d(k)
+    up = sp.triu(A, 1).tocoo()
+    up.data = up.data * np.random.default_rng(0).uniform(0.25, 1.0, up.nnz)
+    return sp.csc_matrix(sp.tril(A) + up)
 
 
 def card_line() -> str:
@@ -457,14 +649,20 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions, at the 48^3 plan's calls
+    # 3. kernels against their plain versions, at the 48^3 plans' calls
     A = generate.laplacian_3d(GRID)
     ctx = spfx_torch.Cholesky(A, Config(), device=dev)
     log(f"[plan] grid {GRID}^3 analyze {ctx.analyze_time:.2f} s plan "
         f"{ctx.plan_time:.2f} s " + json.dumps(plan_summary(ctx)))
+    # the pattern is symmetric, so the analysis of A + A^T that LU runs is
+    # the Cholesky one: reuse it and skip a second host analysis
+    lctx = spfx_torch.LU(A, Config(), sym=ctx.sym, device=dev)
+    log(f"[plan] LU grid {GRID}^3 reuses the Cholesky analysis; plan "
+        f"{lctx.plan_time:.2f} s " + json.dumps(plan_summary(lctx)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     pcalls = potrf_calls(ctx, dev)
+    lcalls = getrf_calls(lctx, dev)
     errs = {}
     rows = None
     for dtype in ("float32", "float64"):
@@ -473,9 +671,12 @@ def main(argv) -> int:
         errs.update({(k, dtype): v for k, v in gerr.items()})
         errs[("potrf_inv", dtype)] = check_potrf(pcalls, dtype)
         check_potrf(narrow_potrf_calls(dev, gen), dtype)
+        errs[("getrf_inv", dtype)] = check_getrf(lcalls, dtype)
+        check_getrf(narrow_getrf_calls(dev, gen), dtype)
         log(f"[kernels] {dtype}: {len(gcalls)} window_gather2 calls "
             f"bit-identical, {len(pcalls)} potrf_inv calls max abs err "
-            f"{errs[('potrf_inv', dtype)]:.3e} "
+            f"{errs[('potrf_inv', dtype)]:.3e}, {len(lcalls)} getrf_inv "
+            f"calls max abs err {errs[('getrf_inv', dtype)]:.3e} "
             f"({time.perf_counter() - t0:.1f} s)")
         if dtype == "float32":
             rows = kernel_rows(L, gcalls, pcalls, dtype)
@@ -483,46 +684,83 @@ def main(argv) -> int:
             for k, (ms, bms) in path.items():
                 rows[k]["path_ms"] = ms
                 rows[k]["path_bound_ms"] = bms
+            rows["getrf_inv"] = getrf_rows(L, lcalls, dtype)
             log("[kernels] f32 timing " + json.dumps(rows))
         del L
+    del pcalls, lcalls
     torch.cuda.empty_cache()
 
-    # 4. main path, 48^3 f32 with the default Config
-    _, launches, rep48 = main_path(ctx, A, f"main {GRID}^3 float32")
+    # 4. Cholesky main path, 48^3 f32 with the default Config
+    _, launches, _ = main_path(ctx, A, f"main {GRID}^3 float32")
     if "--profile" in argv:
-        profile_pass(ctx, A)
+        profile_pass(ctx, A, "chip_smoke_profile")
     del ctx
     torch.cuda.empty_cache()
 
+    # 4b. LU main path, 48^3 f32 with the default Config
+    _, lu_launches, _ = main_path(lctx, A, f"LU {GRID}^3 float32")
+    if "--profile" in argv:
+        profile_pass(lctx, A, "chip_smoke_profile_lu")
+    del lctx
+    torch.cuda.empty_cache()
+
     # 5. f64 at 32^3
-    A32 = generate.laplacian_3d(32)
+    A32 = generate.laplacian_3d(GRID_F64)
     ctx64 = spfx_torch.Cholesky(A32, Config(dtype="float64"), device=dev)
-    main_path(ctx64, A32, "f64 32^3 float64")
+    main_path(ctx64, A32, f"f64 {GRID_F64}^3 float64")
     del ctx64
 
+    # 5b. LU in f64 at 32^3, unsymmetric values
+    A32u = unsym_laplacian(GRID_F64)
+    lctx64 = spfx_torch.LU(A32u, Config(dtype="float64"), device=dev)
+    log(f"[plan] LU unsym {GRID_F64}^3 analyze {lctx64.analyze_time:.2f} s "
+        f"plan {lctx64.plan_time:.2f} s, max |A - A^T| "
+        f"{abs(A32u - A32u.T).max():.3f}")
+    main_path(lctx64, A32u, f"LU unsym {GRID_F64}^3 float64")
+    del lctx64
+
     # 6. the card against the CPU (plain versions), 12^3 f64
-    A12 = generate.laplacian_3d(12)
+    A12 = generate.laplacian_3d(GRID_CPU)
     cfg = Config(dtype="float64")
     Lg = spfx_torch.cholesky(A12, cfg, device=dev).L.cpu()
     Lc = spfx_torch.cholesky(A12, cfg, device="cpu").L
     rel = float((Lg - Lc).abs().max() / Lc.abs().max())
-    log(f"[card vs cpu] 12^3 f64 max rel diff {rel:.3e}")
+    log(f"[card vs cpu] {GRID_CPU}^3 f64 max rel diff {rel:.3e}")
     if not rel <= 1e-10:
         fail(f"card and CPU factors differ by {rel:.3e}")
 
-    # 7. the kernels line
+    # 6b. the same for LU, unsymmetric values, both flat factors
+    A12u = unsym_laplacian(GRID_CPU)
+    fg = spfx_torch.lu(A12u, cfg, device=dev)
+    fc = spfx_torch.lu(A12u, cfg, device="cpu")
+    for name, g, c in (("Lx", fg.Lx, fc.Lx), ("Ux", fg.Ux, fc.Ux)):
+        rel = float((g.cpu() - c).abs().max() / c.abs().max())
+        log(f"[card vs cpu] LU unsym {GRID_CPU}^3 f64 {name} max rel diff "
+            f"{rel:.3e}")
+        if not rel <= 1e-10:
+            fail(f"card and CPU LU factors ({name}) differ by {rel:.3e}")
+
+    # 7. the kernels line: launches from the kernel's own path (window
+    # gathers and potrf_inv: Cholesky; getrf_inv: LU), both paths listed
     src = {"window_gather2": "spfx_torch/kernels/csrc/window_gather.cu",
            "window_gather": "spfx_torch/kernels/csrc/window_gather.cu",
-           "potrf_inv": "spfx_torch/kernels/csrc/potrf_inv.cu"}
+           "potrf_inv": "spfx_torch/kernels/csrc/potrf_inv.cu",
+           "getrf_inv": "spfx_torch/kernels/csrc/getrf_inv.cu"}
     rep_ = {"window_gather2": "spfx/kernels/pallas_blocks.py:100",
             "window_gather": "spfx/kernels/pallas_blocks.py:48",
-            "potrf_inv": "spfx/kernels/pallas_blocks.py:1074"}
+            "potrf_inv": "spfx/kernels/pallas_blocks.py:1074",
+            "getrf_inv": "spfx/kernels/pallas_blocks.py:1138"}
     kernels = []
-    for name in ("window_gather2", "window_gather", "potrf_inv"):
+    for name in ("window_gather2", "window_gather", "potrf_inv",
+                 "getrf_inv"):
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src[name],
-            "replaces": rep_[name], "launches": launches[name],
+            "replaces": rep_[name],
+            "launches": (lu_launches if name == "getrf_inv"
+                         else launches)[name],
+            "launches_by_path": {"cholesky": launches[name],
+                                 "lu": lu_launches[name]},
             "max_abs_err": errs[(name, "float32")], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

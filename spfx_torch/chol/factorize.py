@@ -112,6 +112,61 @@ def check_windows(plan: FactorPlan) -> None:
                                      "the end of storage")
 
 
+def update_precision(config: Config):
+    """The context for the UT update steps inside the walk's
+    ``matmul_precision(config.matmul_precision)``: a no-op unless
+    ``config.update_precision`` names another torch mode."""
+    upd = config.update_precision or config.matmul_precision
+    if _PRECISION[upd] == _PRECISION[config.matmul_precision]:
+        return contextlib.nullcontext
+    return functools.partial(matmul_precision, upd)
+
+
+def finish_factorize(ctx, f, t0: float):
+    """Wait for the device, record the factorization's wall time since
+    ``t0`` on ``ctx``, then honour ``config.profile`` (a timing line on
+    stderr) and ``config.validate`` (the refined solve's scaled residual
+    as ``f.residual``, with a warning above 1e-8)."""
+    cfg = ctx.config
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    ctx.factorize_time = time.perf_counter() - t0
+    if cfg.profile:
+        print(f"[spfx_torch profile] analyze {ctx.analyze_time:.3f}s  "
+              f"plan {ctx.plan_time:.3f}s  "
+              f"factorize {ctx.factorize_time:.3f}s  "
+              f"({ctx.plan.flops / max(ctx.factorize_time, 1e-12) / 1e9:.1f}"
+              " GFLOP/s)", file=sys.stderr, flush=True)
+    if cfg.validate:
+        from spfx_torch.validate import scaled_residual, synth_rhs
+        b = synth_rhs(f.A)
+        f.residual = scaled_residual(f.A, f.solve(b), b)
+        if not f.residual < 1e-8:
+            print(f"[spfx_torch] WARNING: scaled residual "
+                  f"{f.residual:.3e} exceeds 1e-8 validation gate",
+                  file=sys.stderr, flush=True)
+    return f
+
+
+def refined_solve(solve1, A, config: Config, b, refine: int | None):
+    """Solve A x = b with ``solve1`` (the factor's host f64 solve), then
+    ``refine`` sweeps of f64 iterative refinement against A (the
+    config's ``refine_iters`` when None), stopping early once the residual
+    is under ``config.refine_tol``."""
+    refine = config.refine_iters if refine is None else refine
+    b = np.asarray(b).astype(np.float64)
+    x = solve1(b)
+    if refine <= 0:
+        return x
+    bn = np.abs(b).max() + 1e-300
+    for _ in range(refine):
+        r = b - A @ x
+        if np.abs(r).max() / bn < config.refine_tol:
+            break
+        x = x + solve1(r)
+    return x
+
+
 class CholeskyFactor:
     """Factorized P A P^T = L L^T: the flat panel tensor ``L`` on the
     context's device, with the host f64 solve."""
@@ -152,18 +207,7 @@ class CholeskyFactor:
 
     def solve(self, b: np.ndarray, refine: int | None = None) -> np.ndarray:
         """Solve A x = b with f64 iterative refinement (mixed precision)."""
-        refine = self.config.refine_iters if refine is None else refine
-        b = np.asarray(b).astype(np.float64)
-        x = self._solve_host(b)
-        if refine <= 0:
-            return x
-        bn = np.abs(b).max() + 1e-300
-        for _ in range(refine):
-            r = b - self.A @ x
-            if np.abs(r).max() / bn < self.config.refine_tol:
-                break
-            x = x + self._solve_host(r)
-        return x
+        return refined_solve(self._solve_host, self.A, self.config, b, refine)
 
     # -- introspection ----------------------------------------------------
 
@@ -237,10 +281,6 @@ class Cholesky:
         return torch.as_tensor(low.data.astype(self.config.dtype),
                                device=self.device)
 
-    def _synchronize(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def factorize(self, A: sp.spmatrix) -> CholeskyFactor:
         A = sp.csc_matrix(A)
         cfg = self.config
@@ -251,10 +291,7 @@ class Cholesky:
             self._asm_idx = torch.as_tensor(
                 self.plan.assembly_idx.astype(np.int64), device=dev)
         L = blocks.assemble(self._asm_idx, vals, self.plan.storage)
-        upd_prec = cfg.update_precision or cfg.matmul_precision
-        upd_ctx = (contextlib.nullcontext if _PRECISION[upd_prec]
-                   == _PRECISION[cfg.matmul_precision]
-                   else functools.partial(matmul_precision, upd_prec))
+        upd_ctx = update_precision(cfg)
         with matmul_precision(cfg.matmul_precision):
             for lp in self.plan.levels:
                 # left-looking: drain this level's pending updates, then
@@ -273,24 +310,8 @@ class Cholesky:
                     blocks.factor_panels_chol_u(
                         L, widths, nbelow, int(pb.slab_lo[0]),
                         cp=pb.cp, rbp=pb.rbp)
-        self._synchronize()
-        self.factorize_time = time.perf_counter() - t0
         f = CholeskyFactor(A, self.sym, self.plan, L, cfg)
-        if cfg.profile:
-            print(f"[spfx_torch profile] analyze {self.analyze_time:.3f}s  "
-                  f"plan {self.plan_time:.3f}s  "
-                  f"factorize {self.factorize_time:.3f}s  "
-                  f"({self.plan.flops / max(self.factorize_time, 1e-12) / 1e9:.1f}"
-                  " GFLOP/s)", file=sys.stderr, flush=True)
-        if cfg.validate:
-            from spfx_torch.validate import scaled_residual, synth_rhs
-            b = synth_rhs(A)
-            f.residual = scaled_residual(A, f.solve(b), b)
-            if not f.residual < 1e-8:
-                print(f"[spfx_torch] WARNING: scaled residual "
-                      f"{f.residual:.3e} exceeds 1e-8 validation gate",
-                      file=sys.stderr, flush=True)
-        return f
+        return finish_factorize(self, f, t0)
 
 
 def cholesky(A: sp.spmatrix, config: Config = DEFAULT,

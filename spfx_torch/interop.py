@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from spfx_torch.chol.factorize import Cholesky, CholeskyFactor
+from spfx_torch.lu.factorize import LU, LUFactor
 
 _BUCKET_TABLES = ("sns", "widths", "nbelow", "diag_start", "below_start",
                   "xcols", "xrows", "slab_lo", "kw", "mrows", "src_start",
@@ -24,16 +25,29 @@ _PLAN_TABLES = ("assembly_idx", "assembly_idx_u", "offsets", "strides",
 _PLAN_STATICS = ("n", "xsize", "slack", "storage", "flops")
 
 
+def _flat(ctx, flat, device) -> torch.Tensor:
+    flat = np.asarray(flat)
+    if flat.shape != (ctx.plan.storage,):
+        raise ValueError(f"flat factor has shape {flat.shape}, the plan "
+                         f"stores {ctx.plan.storage} values")
+    dev = ctx.device if device is None else torch.device(device)
+    return torch.tensor(np.asarray(flat, dtype=ctx.config.dtype), device=dev)
+
+
 def factor_from_numpy(ctx: Cholesky, L_flat, device=None) -> CholeskyFactor:
     """A port factor of ``ctx``'s matrix from a flat factor array computed
     on the same plan (e.g. ``np.asarray(spfx_factor.L)``)."""
-    L_flat = np.asarray(L_flat)
-    if L_flat.shape != (ctx.plan.storage,):
-        raise ValueError(f"flat factor has shape {L_flat.shape}, the plan "
-                         f"stores {ctx.plan.storage} values")
-    dev = ctx.device if device is None else torch.device(device)
-    L = torch.tensor(np.asarray(L_flat, dtype=ctx.config.dtype), device=dev)
-    return CholeskyFactor(ctx.A, ctx.sym, ctx.plan, L, ctx.config)
+    return CholeskyFactor(ctx.A, ctx.sym, ctx.plan,
+                          _flat(ctx, L_flat, device), ctx.config)
+
+
+def lu_factor_from_numpy(ctx: LU, Lx_flat, Ux_flat, device=None) -> LUFactor:
+    """A port LU factor of ``ctx``'s matrix from the twin flat arrays of a
+    factor computed on the same plan (e.g. ``np.asarray(spfx_factor.Lx)``
+    and ``np.asarray(spfx_factor.Ux)``)."""
+    return LUFactor(ctx.A, ctx.sym, ctx.plan, _flat(ctx, Lx_flat, device),
+                    _flat(ctx, Ux_flat, device), ctx.config,
+                    row_perm=ctx.row_perm)
 
 
 def plan_arrays(plan) -> dict:

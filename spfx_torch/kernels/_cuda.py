@@ -40,12 +40,19 @@ _SIGNATURES = {
         "spfx_potrf_inv_f32": [_vp, _vp, _vp, _vp, _c_int, _c_int, _vp],
         "spfx_potrf_inv_f64": [_vp, _vp, _vp, _vp, _c_int, _c_int, _vp],
     },
+    "getrf_inv": {
+        "spfx_getrf_inv_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _c_int, _c_int,
+                               _vp],
+        "spfx_getrf_inv_f64": [_vp, _vp, _vp, _vp, _vp, _vp, _c_int, _c_int,
+                               _vp],
+    },
 }
 
 _libs: dict = {}
 build_log: dict = {}          # source name -> nvcc's output (ptxas -v)
 
-_launches = {"window_gather2": 0, "window_gather": 0, "potrf_inv": 0}
+_launches = {"window_gather2": 0, "window_gather": 0, "potrf_inv": 0,
+             "getrf_inv": 0}
 
 
 def count(name: str) -> None:

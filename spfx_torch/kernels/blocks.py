@@ -1,17 +1,23 @@
-"""Batched dense-block numeric primitives of the Cholesky main path.
+"""Batched dense-block numeric primitives of the Cholesky and LU main paths.
 
 Port of the main-path part of spfx/kernels/blocks.py. Everything is batched
 over one bucket of same-padded supernode tasks and works IN PLACE on the
-one flat factor tensor ``L`` (the JAX functions return a new array; here
-the slab or panel block is a view of ``L`` and is updated where it lies).
+flat factor tensors (``L`` for Cholesky, the twins ``Lx`` and ``Ux`` for
+LU; the JAX functions return new arrays, here the slab or panel block is a
+view of the flat tensor and is updated where it lies).
 
 - assembly: the permuted lower-triangle values scattered into fresh storage;
 - UT update step: two superwindow gathers (``gather.window_gather2``), the
   masked product C = G H^T, C's columns placed at their target columns, and
   the extend-add of the valid rows into the target slab;
 - PC panel step: the NB = 32 blocked panel factorization, whose diagonal
-  blocks go through ``panel.potrf_inv``; the panel solves and the trailing
-  updates are batched matrix products.
+  blocks go through ``panel.potrf_inv`` (LU: ``panel.getrf_inv``); the
+  panel solves and the trailing updates are batched matrix products.
+
+LU stores L (unit diagonal, zeros above it) in ``Lx`` and U^T (U's
+diagonal on its diagonal) in ``Ux``, slot for slot in the same panel
+layout; an LU step runs the Cholesky step's gathers and extend-add once
+per array, with crossed products (C_L = G_L H_U^T, C_U = G_U H_L^T).
 """
 
 from __future__ import annotations
@@ -125,23 +131,28 @@ def update_rows_sym_t(L, kw, mrows, rstart, src_start, head_start,
     batch item is one (<= mp)-row source tile in its superwindow (true rows
     at [rstart, rstart+mrows)), against its task's head window (k-masked to
     the source width kw). C = G H^T's column n lands at target column
-    tgt_cpos[n]; columns with tgt_cpos == -1 are dropped. The placement is
-    a scatter in place of the JAX package's one-hot product, and as exact:
-    each target column receives at most one live C column."""
-    ext = ALIGN // kp
-    rows_g = mp + ext
-    B, np_h = tgt_cpos.shape
+    tgt_cpos[n] (``_place_cols``)."""
+    rows_g = mp + ALIGN // kp
+    np_h = tgt_cpos.shape[1]
     G, H = _pair_gather_aligned(L, src_start, rows_g, head_start, np_h, kp)
     G = G * _rng_mask(rstart, mrows, rows_g, L.dtype)[:, :, None]
     H = H * _col_mask(kw, kp, L.dtype)[:, None, :]
-    C = torch.bmm(G, H.transpose(1, 2))                  # (B, rows_g, np_h)
+    return _place_cols(torch.bmm(G, H.transpose(1, 2)), tgt_cpos, csp)
+
+
+def _place_cols(C, tgt_cpos, csp: int):
+    """E (B, rows, csp) with C (B, rows, np_h)'s column n at tgt_cpos[n];
+    columns with tgt_cpos == -1 are dropped. A scatter in place of the JAX
+    package's one-hot product, and as exact: each target column receives
+    at most one live C column."""
+    B, rows, np_h = C.shape
     # dropped columns are zeroed and added onto column 0: adding exact
     # zeros leaves E exactly C's placement
     live = tgt_cpos >= 0
     C = C * live[:, None, :].to(C.dtype)
     col = torch.where(live, tgt_cpos, 0).to(torch.int64)
-    E = C.new_zeros((B, rows_g, csp))
-    return E.scatter_add_(2, col[:, None, :].expand(B, rows_g, np_h), C)
+    E = C.new_zeros((B, rows, csp))
+    return E.scatter_add_(2, col[:, None, :].expand(B, rows, np_h), C)
 
 
 def extend_add_slab(L, slab_lo: int, ea_idx, ea_rbase, ea_rel, E,
@@ -169,3 +180,119 @@ def apply_updates_sym_t(L, kw, mrows, rstart, src_start, head_start,
                           tgt_cpos, mp, kp, csp)
     return extend_add_slab(L, slab_lo, ea_idx, ea_rbase, ea_rel, E,
                            srows, csp)
+
+
+# --------------------------------------------------------------------------
+# LU: the same steps over the twin arrays Lx (L) and Ux (U^T)
+# --------------------------------------------------------------------------
+
+def update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
+                     tgt_cpos, mp: int, kp: int, csp: int):
+    """LU update rows (EL, EU) of one M-tiled bucket: the superwindows of
+    update_rows_sym_t gathered from each array over the same starts, then
+    the crossed products CL = GL HU^T and CU = GU HL^T (H k-masked, G
+    row-masked), each placed by tgt_cpos."""
+    rows_g = mp + ALIGN // kp
+    np_h = tgt_cpos.shape[1]
+    rm = _rng_mask(rstart, mrows, rows_g, Lx.dtype)[:, :, None]
+    km = _col_mask(kw, kp, Lx.dtype)[:, None, :]
+    GL, HL = _pair_gather_aligned(Lx, src_start, rows_g, head_start, np_h,
+                                  kp)
+    GU, HU = _pair_gather_aligned(Ux, src_start, rows_g, head_start, np_h,
+                                  kp)
+    CL = torch.bmm(GL * rm, (HU * km).transpose(1, 2))
+    CU = torch.bmm(GU * rm, (HL * km).transpose(1, 2))
+    return _place_cols(CL, tgt_cpos, csp), _place_cols(CU, tgt_cpos, csp)
+
+
+def apply_updates_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
+                       slab_lo: int, ea_idx, ea_rbase, ea_rel, tgt_cpos,
+                       mp: int, kp: int, csp: int, srows: int):
+    """One LU UT update step, in place on Lx and Ux."""
+    EL, EU = update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start,
+                              head_start, tgt_cpos, mp, kp, csp)
+    extend_add_slab(Lx, slab_lo, ea_idx, ea_rbase, ea_rel, EL, srows, csp)
+    extend_add_slab(Ux, slab_lo, ea_idx, ea_rbase, ea_rel, EU, srows, csp)
+    return Lx, Ux
+
+
+def lu_front(DLraw, DUraw, widths):
+    """The square LU front Mf (B, cp, cp) of a panel bucket's diagonal
+    windows, masked to the live width: L side on and below the diagonal
+    (DL's lower part), U side above it (DU's strict lower part,
+    transposed)."""
+    cp = DLraw.shape[-1]
+    cm = _col_mask(widths, cp, DLraw.dtype)
+    mm = cm[:, None, :] * cm[:, :, None]
+    return (torch.tril(DLraw * mm)
+            + torch.tril(DUraw * mm, -1).transpose(1, 2)), mm
+
+
+def _lu_deltas_blocked(DLraw, DUraw, BLraw, BUraw, widths, nbelow,
+                       cp: int, rbp: int):
+    """LU panel deltas (dDL, dBL, dDU, dBU) of task-major blocks: NB-column
+    block steps whose only serial work is the batched no-pivot LU + the
+    explicit L and U inverses of the (NB, NB) diagonal block; the panel
+    solves (L side below: P Uinv; U side row block: Linv A; U^T below:
+    P Linv^T) and the trailing updates are batched products."""
+    B = widths.shape[0]
+    dt = DLraw.dtype
+    cm = _col_mask(widths, cp, dt)
+    Mf, mmask = lu_front(DLraw, DUraw, widths)
+    if rbp:
+        bm = cm[:, None, :] * _row_mask(nbelow, rbp, dt)[:, :, None]
+        PL = BLraw * bm
+        PU = BUraw * bm
+    for s in range(0, cp, NB):
+        e = min(s + NB, cp)
+        wrel = (widths - s).clamp(0, e - s).to(torch.int32)
+        Lb, Ub, Linv, Uinv = panel.getrf_inv(wrel,
+                                             Mf[:, s:e, s:e].contiguous())
+        # L side below the block: X U = P  ->  X = P Uinv
+        PbL = torch.cat([Mf[:, e:, s:e], PL[:, :, s:e]], dim=1) if rbp \
+            else Mf[:, e:, s:e]
+        Lcol = torch.bmm(PbL, Uinv)
+        Ld = Lcol[:, :cp - e, :]            # rows e..cp <-> future columns
+        Mf[:, s:e, s:e] = torch.tril(Lb, -1) + Ub
+        if e < cp:
+            # U side row block: L U12 = A  ->  U12 = Linv A (unit L)
+            U12 = torch.bmm(Linv, Mf[:, s:e, e:])
+            Mf[:, s:e, e:] = U12
+            Mf[:, e:, s:e] = Ld
+            Mf[:, e:, e:] -= torch.bmm(Ld, U12)
+        if rbp:
+            # U^T below the panel: X L^T = P (unit)  ->  X = P Linv^T
+            U12t_pu = torch.bmm(PU[:, :, s:e], Linv.transpose(1, 2))
+            Lp = Lcol[:, cp - e:, :]
+            if e < cp:
+                PL[:, :, e:] -= torch.bmm(Lp, U12)
+                PU[:, :, e:] -= torch.bmm(U12t_pu, Ld.transpose(1, 2))
+            PL[:, :, s:e] = Lp
+            PU[:, :, s:e] = U12t_pu
+    L11 = torch.tril(Mf, -1) + torch.eye(cp, dtype=dt, device=Mf.device)
+    U11t = torch.triu(Mf).transpose(1, 2)
+    dDL = (L11 - DLraw) * mmask
+    dDU = (U11t - DUraw) * mmask
+    if rbp:
+        return dDL, (PL - BLraw) * bm, dDU, (PU - BUraw) * bm
+    empty = DLraw.new_zeros((B, 0, cp))
+    return dDL, empty, dDU, empty
+
+
+def factor_panels_lu_u(Lx, Ux, widths, nbelow, slab_lo: int, cp: int,
+                       rbp: int):
+    """Factor one uniform LU panel bucket IN PLACE on the same block of Lx
+    and Ux (see factor_panels_chol_u)."""
+    B = widths.shape[0]
+    S = (cp + rbp) * cp
+    bl = Lx[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
+    bu = Ux[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
+    dDL, dBL, dDU, dBU = _lu_deltas_blocked(
+        bl[:, :cp, :], bu[:, :cp, :], bl[:, cp:, :], bu[:, cp:, :],
+        widths, nbelow, cp, rbp)
+    bl[:, :cp, :] += dDL
+    bu[:, :cp, :] += dDU
+    if rbp:
+        bl[:, cp:, :] += dBL
+        bu[:, cp:, :] += dBU
+    return Lx, Ux

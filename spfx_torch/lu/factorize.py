@@ -1,0 +1,203 @@
+"""Supernodal sparse LU without pivoting: numeric engine + factor object.
+
+Port of spfx/lu/factorize.py. The symbolic analysis runs on the pattern of
+A + A^T, so L and U^T share one supernode structure and one panel layout:
+the flat tensor ``Lx`` holds L (unit diagonal), ``Ux`` holds U^T (U's
+diagonal on its diagonal), slot for slot. The device scatters the permuted
+L-lower and U^T strict-lower values into the two tensors and walks the
+plan's levels in place, as the Cholesky executor does: each level's UT
+update buckets (``blocks.apply_updates_lu_t``), then its PC panel buckets
+(``blocks.factor_panels_lu_u``). The solve copies both factors back and
+runs the native f64 supernodal solve with iterative refinement against the
+user's matrix on the host.
+
+Like the reference, the factorization does not pivot: it needs a matrix
+that factors without pivoting (diagonally dominant, or made so by the
+optional host-side static pivot, ``Config(static_pivot=True)``).
+
+Device policy as in ``spfx_torch.chol.factorize``: CUDA unless the caller
+passes ``device``; with neither, the entry points raise.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from spfx_torch.chol.factorize import (
+    _DTYPES, check_config, check_windows, finish_factorize, matmul_precision,
+    refined_solve, resolve_device, update_precision)
+from spfx_torch.kernels import blocks
+from spfx_torch.plan.schedule import FactorPlan, build_plan
+from spfx_torch.symbolic.analyze import Symbolic, analyze
+from spfx_torch.utils.config import Config, DEFAULT
+
+
+class LUFactor:
+    """Factorized P A P^T = L U (unit-diagonal L, no pivoting): the flat
+    tensors ``Lx`` (L) and ``Ux`` (U^T) on the context's device, with the
+    host f64 solve."""
+
+    def __init__(self, A: sp.spmatrix, sym: Symbolic, plan: FactorPlan,
+                 Lx: torch.Tensor, Ux: torch.Tensor, config: Config,
+                 row_perm: np.ndarray | None = None):
+        self.A = sp.csc_matrix(A)
+        self.sym = sym
+        self.plan = plan
+        self.Lx = Lx
+        self.Ux = Ux
+        self.config = config
+        # static pivot row permutation (Config.static_pivot): the factor is
+        # of A[row_perm], so solves permute b on the way in; A is kept
+        # unpermuted so refinement runs against the user's matrix
+        self.row_perm = row_perm
+        self._inperm = sym.perm if row_perm is None else row_perm[sym.perm]
+        self._host = None
+
+    def host_factors(self) -> tuple[np.ndarray, np.ndarray]:
+        """(Lx, Ux) as contiguous numpy arrays (copied once)."""
+        if self._host is None:
+            self._host = tuple(np.ascontiguousarray(t.detach().cpu().numpy())
+                               for t in (self.Lx, self.Ux))
+        return self._host
+
+    def _solve_host(self, b: np.ndarray) -> np.ndarray:
+        """Native C++ supernodal solve on the copied-back factors (f64)."""
+        from spfx_torch.symbolic import _native
+        if not _native.available():
+            raise RuntimeError("spfx_torch solve needs the native planner "
+                               "library (no device solve yet)")
+        Lh, Uh = self.host_factors()
+        n = self.sym.n
+        squeeze = b.ndim == 1
+        b2 = np.asarray(b, dtype=np.float64).reshape(n, -1)
+        out = np.empty_like(b2)
+        for j in range(b2.shape[1]):
+            x = np.ascontiguousarray(b2[self._inperm, j])
+            _native.lu_solve_host(self.sym, self.plan, Lh, Uh, x)
+            out[self.sym.perm, j] = x
+        return out[:, 0] if squeeze else out
+
+    def solve(self, b: np.ndarray, refine: int | None = None) -> np.ndarray:
+        """Solve A x = b with f64 iterative refinement (mixed precision)."""
+        return refined_solve(self._solve_host, self.A, self.config, b, refine)
+
+    def LU_sparse(self) -> tuple[sp.csc_matrix, sp.csc_matrix]:
+        """Reconstruct (L, U) of P A P^T as scipy matrices — test path."""
+        sym = self.sym
+        Lh, Uh = self.host_factors()
+        lr, lc, lv = [], [], []
+        ur, uc, uv = [], [], []
+        shift = self.plan.below_shift
+        for s in range(sym.nsuper):
+            c1, c2 = sym.sn_start[s], sym.sn_start[s + 1]
+            rr = sym.sn_row_list(s)
+            w = c2 - c1
+            wp = int(self.plan.strides[s])
+            off = self.plan.offsets[s]
+            sr = np.arange(len(rr))
+            if shift is not None:
+                sr = sr + np.where(sr >= w, shift[s], 0)
+            for c in range(w):
+                pos = off + sr * wp + c                # row-major panel
+                keep = rr >= c1 + c
+                lr.append(rr[keep])
+                lc.append(np.full(keep.sum(), c1 + c))
+                lv.append(Lh[pos][keep])
+                # U^T panel column c holds U[c1+c, rr] for rr >= c1+c
+                ur.append(np.full(keep.sum(), c1 + c))
+                uc.append(rr[keep])
+                uv.append(Uh[pos][keep])
+        n = sym.n
+        L = sp.csc_matrix((np.concatenate(lv),
+                           (np.concatenate(lr), np.concatenate(lc))),
+                          shape=(n, n))
+        U = sp.csc_matrix((np.concatenate(uv),
+                           (np.concatenate(ur), np.concatenate(uc))),
+                          shape=(n, n))
+        return L, U
+
+
+class LU:
+    """Reusable symbolic+plan context for same-pattern unsymmetric systems,
+    factorized on one device."""
+
+    def __init__(self, A: sp.spmatrix, config: Config = DEFAULT,
+                 sym: Symbolic | None = None, device=None):
+        check_config(config)
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[config.dtype]
+        A = sp.csc_matrix(A)
+        self.A = A
+        self.config = config
+        t0 = time.perf_counter()
+        if config.static_pivot:
+            from spfx_torch.lu.pivot import static_pivot
+            self.row_perm = static_pivot(A)
+            A = sp.csc_matrix(A[self.row_perm])
+        else:
+            self.row_perm = None
+        self.sym = sym if sym is not None else analyze(A, config,
+                                                       symmetrize=True)
+        self.analyze_time = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.plan = build_plan(self.sym, A, config, lu=True)
+        self.plan_time = time.perf_counter() - t0
+        check_windows(self.plan)
+        self._asm_idx = None
+
+    def entry_values(self, A: sp.spmatrix, permute_rows: bool = True):
+        """Permuted L-lower and U^T strict-lower entry values — the only
+        data that crosses the host->device link per factorization."""
+        A = sp.csc_matrix(A)
+        if permute_rows and self.row_perm is not None:
+            A = sp.csc_matrix(A[self.row_perm])
+        Ap = A[self.sym.perm][:, self.sym.perm]
+        low = sp.tril(Ap).tocsc()
+        upt = sp.tril(Ap.T, -1).tocsc()
+        return tuple(torch.as_tensor(m.data.astype(self.config.dtype),
+                                     device=self.device)
+                     for m in (low, upt))
+
+    def factorize(self, A: sp.spmatrix) -> LUFactor:
+        A = sp.csc_matrix(A)
+        cfg = self.config
+        dev = self.device
+        t0 = time.perf_counter()
+        vals_l, vals_u = self.entry_values(A)
+        if self._asm_idx is None:
+            self._asm_idx = tuple(
+                torch.as_tensor(i.astype(np.int64), device=dev)
+                for i in (self.plan.assembly_idx, self.plan.assembly_idx_u))
+        Lx = blocks.assemble(self._asm_idx[0], vals_l, self.plan.storage)
+        Ux = blocks.assemble(self._asm_idx[1], vals_u, self.plan.storage)
+        upd_ctx = update_precision(cfg)
+        with matmul_precision(cfg.matmul_precision):
+            for lp in self.plan.levels:
+                # left-looking: drain this level's pending updates, then
+                # factor its panels
+                with upd_ctx():
+                    for ub in lp.updates:
+                        (kw, mrows, rstart, src_start, head_start, _,
+                         ea_idx, ea_rbase, ea_rel, tgt_cpos) = ub.to(dev)
+                        blocks.apply_updates_lu_t(
+                            Lx, Ux, kw, mrows, rstart, src_start,
+                            head_start, int(ub.slab_lo[0]), ea_idx,
+                            ea_rbase, ea_rel, tgt_cpos, mp=ub.mp, kp=ub.kp,
+                            csp=ub.csp, srows=ub.slab_rows)
+                for pb in lp.panels:
+                    widths, nbelow, _ = pb.to_u(dev)
+                    blocks.factor_panels_lu_u(
+                        Lx, Ux, widths, nbelow, int(pb.slab_lo[0]),
+                        cp=pb.cp, rbp=pb.rbp)
+        f = LUFactor(A, self.sym, self.plan, Lx, Ux, cfg,
+                     row_perm=self.row_perm)
+        return finish_factorize(self, f, t0)
+
+
+def lu(A: sp.spmatrix, config: Config = DEFAULT, device=None) -> LUFactor:
+    """One-shot: analyze + plan + unpivoted numeric LU of A."""
+    return LU(A, config, device=device).factorize(A)

@@ -155,7 +155,8 @@ def test_update_precision_restores_torch_state():
 
 
 def test_import_leaves_no_jax():
-    code = ("import sys, spfx_torch, spfx_torch.interop\n"
+    code = ("import sys, spfx_torch, spfx_torch.interop, "
+            "spfx_torch.lu.factorize, spfx_torch.lu.pivot\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spfx')]\n"
             "print(','.join(bad))\n")
@@ -177,6 +178,8 @@ def test_port_sources_import_no_jax():
     anywhere in spfx_torch/ or chip_smoke.py."""
     srcs = list(_port_sources())
     assert len(srcs) > 10
+    for f in ("lu/factorize.py", "lu/pivot.py"):
+        assert os.path.join(ROOT, "spfx_torch", f) in srcs
     for path in srcs:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

@@ -110,3 +110,54 @@ def test_superwindows_inside_storage(plans):
             check_windows(plan)
     finally:
         ub.src_start[:] = saved
+
+
+# --------------------------------------------------------------------------
+# LU plans (lu=True): the analysis of A + A^T and the U^T assembly table
+# --------------------------------------------------------------------------
+
+def _unsym(n, seed=1):
+    """The random unsymmetric matrix of tests/test_mega.py."""
+    B = sp.random(n, n, density=0.02, random_state=seed).tocsc()
+    return sp.csc_matrix(B + sp.diags(np.abs(B).sum(axis=1).A1 + 1.0))
+
+
+LU_MATRICES = {"lap6": lambda: generate.laplacian_3d(6),
+               "unsym300": lambda: _unsym(300)}
+LU_CASES = [(m, d) for m in LU_MATRICES for d in ("float32", "float64")]
+
+
+@pytest.fixture(scope="module", params=LU_CASES,
+                ids=[f"{m}-{d}" for m, d in LU_CASES])
+def lu_plans(request):
+    name, dtype = request.param
+    A = LU_MATRICES[name]()
+    jsym = janalyze(A, JConfig(dtype=dtype), symmetrize=True)
+    jplan = jbuild_plan(jsym, A, JConfig(dtype=dtype), lu=True)
+    sym = analyze(A, Config(dtype=dtype), symmetrize=True)
+    plan = build_plan(sym, A, Config(dtype=dtype), lu=True)
+    return jsym, jplan, sym, plan
+
+
+def test_lu_plan_identical(lu_plans):
+    jsym, jplan, sym, plan = lu_plans
+    for name in ("perm", "sn_start", "sn_ptr", "sn_rows"):
+        np.testing.assert_array_equal(getattr(sym, name),
+                                      getattr(jsym, name), err_msg=name)
+    ja, ta = plan_arrays(jplan), plan_arrays(plan)
+    assert "assembly_idx_u" in ta
+    assert sorted(ja) == sorted(ta)
+    for k in ja:
+        assert ja[k].dtype == ta[k].dtype, k
+        np.testing.assert_array_equal(ta[k], ja[k], err_msg=k)
+    assert plan.flops == jplan.flops
+
+
+def test_lu_plan_main_path_and_windows(lu_plans):
+    """UT and PC buckets only, and every superwindow inside storage (the
+    LU plan's windows serve both arrays)."""
+    _, _, _, plan = lu_plans
+    kinds = {type(b).__name__ for lp in plan.levels
+             for b in lp.updates + lp.panels}
+    assert kinds == {"UpdateBucketC", "PanelBucketC"}
+    check_windows(plan)
