@@ -16,23 +16,38 @@ non-zero):
 3b. the same for getrf_inv over every call of the 48^3 f32 LU plan (the
    32x32 diagonal blocks of the LU fronts of its PC buckets, built from
    the assembled Lx and Ux), plus seeded blocks at nb = 16 and 8;
+3c. the four whole-panel kernels (chol/lu_panel_deltas_lanes/wide) at
+   every PC step of the 48^3 plans (395 calls each; the panels taken from
+   the assembled arrays), in f32 and f64, against their plain versions,
+   with L11 L11^T = D, L21 L11^T = B (Cholesky) and L11 U11 = D,
+   L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part; then
+   times of kernel, plain version and library calls at the largest call
+   by work, and each kernel's bound;
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
    default Config, launch counts against the plan, factorization times,
    GFLOP/s, peak memory, and the refined solve's scaled residual
    (<= 1e-12);
 4b. LU main path: spfx_torch.LU(laplacian_3d(48)) with the default Config,
    the same checks;
+4c. the same two factorizations with SPFX_PANEL_KERNEL=lanes, then =wide:
+   launches against the route-aware prediction (every PC step one launch
+   of the route's kernel), one timed repeat;
 5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12;
 5b. f64 LU at 32^3 with unsymmetric values (every entry above the diagonal
    of laplacian_3d(32) scaled by a factor from U[0.25, 1]), residual
    <= 1e-12;
+5c. the 32^3 f64 Cholesky under lanes and the unsymmetric 32^3 f64 LU
+   under wide, residual <= 1e-12 without refinement;
 6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
 6b. the same for LU, on the unsymmetric 12^3 matrix, both flat factors;
-7. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+6c. the same for both kinds under SPFX_PANEL_KERNEL=lanes, wide and mixed;
+7. the ``kernels`` JSON line (eight kernels), then the final ``ok`` JSON
+   line.
 
 ``--profile`` adds a torch.profiler pass over one 48^3 factorization of
-each path and writes their kernel tables to
-chiprun_out/chip_smoke_profile{,_lu}.txt.
+each kind under each route (default, lanes, wide), prints each one's
+device time, and writes their kernel tables to
+chiprun_out/chip_smoke_profile{,_lu}{,_lanes,_wide}.txt.
 
 It needs one CUDA device and the spfx_torch package next to it; without
 either it prints no result and exits 2.
@@ -40,6 +55,7 @@ either it prints no result and exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -58,8 +74,15 @@ GRID_F64 = 32                      # the double-precision cases
 GRID_CPU = 12                      # card against CPU
 
 
+_LOG = []           # the open log file, once main() has started
+
+
 def log(*a):
+    """Print a line, and keep it in chiprun_out/chip_smoke.log: the whole
+    run's lines, which the end of the output alone may not hold."""
     print(*a, flush=True)
+    for fh in _LOG:
+        print(*a, file=fh, flush=True)
 
 
 def fail(msg: str):
@@ -290,6 +313,247 @@ def getrf_work(wrel, nb: int, item: int):
     return nbytes, float((2.0 / 3.0 * w ** 3 + 2.0 * w ** 3 / 3.0).sum())
 
 
+def chol_panel_work(widths, nbelow, cp: int, rbp: int, item: int):
+    """(bytes, operations) that one whole-panel Cholesky call must spend:
+    each task reads the lower triangle of its live w x w window,
+    w(w+1)/2 values, its live below block, nb*w values, and its widths and
+    nbelow entries, and writes both deltas in full, cp^2 + rbp*cp values;
+    the factorization takes w^3/3 flops and the below solve nb*w^2."""
+    w = widths.clamp(0, cp).double()
+    nb = nbelow.clamp(0, rbp).double()
+    B = widths.shape[0]
+    nbytes = (float((w * (w + 1) / 2 + nb * w).sum()) * item
+              + B * (cp * cp + rbp * cp) * item + 8.0 * B)
+    return nbytes, float((w ** 3 / 3.0 + nb * w * w).sum())
+
+
+def lu_panel_work(widths, nbelow, cp: int, rbp: int, item: int):
+    """(bytes, operations) that one whole-panel LU call must spend: each
+    task reads its live front, w^2 values (DL on and below the diagonal, DU
+    strictly below), its two live below blocks, 2*nb*w values, and its
+    widths and nbelow entries, and writes the four deltas in full,
+    2*cp^2 + 2*rbp*cp values; the no-pivot LU takes 2/3 w^3 flops and the
+    two below solves nb*w^2 each."""
+    w = widths.clamp(0, cp).double()
+    nb = nbelow.clamp(0, rbp).double()
+    B = widths.shape[0]
+    nbytes = (float((w * w + 2.0 * nb * w).sum()) * item
+              + 2.0 * B * (cp * cp + rbp * cp) * item + 8.0 * B)
+    return nbytes, float((2.0 / 3.0 * w ** 3 + 2.0 * nb * w * w).sum())
+
+
+def panel_calls(ctx, dev):
+    """(widths, nbelow, cp, rbp, blocks) of every PC step of the plan, the
+    task-major blocks copied from the assembled (not yet factored) arrays:
+    (Draw, Braw) for Cholesky, (DL, DU, BL, BU) for LU."""
+    import torch
+    from spfx_torch.kernels import blocks
+    plan = ctx.plan
+    if is_lu(ctx):
+        arrays = [blocks.assemble(torch.as_tensor(idx, device=dev), v,
+                                  plan.storage)
+                  for idx, v in zip((plan.assembly_idx,
+                                     plan.assembly_idx_u),
+                                    ctx.entry_values(ctx.A))]
+    else:
+        arrays = [blocks.assemble(torch.as_tensor(plan.assembly_idx,
+                                                  device=dev),
+                                  ctx.entry_values(ctx.A), plan.storage)]
+    out = []
+    for lp in plan.levels:
+        for pb in lp.panels:
+            widths, nbelow, _ = pb.to_u(dev)
+            B, cp, rbp = widths.shape[0], pb.cp, pb.rbp
+            lo = int(pb.slab_lo[0])
+            blks = [x[lo:lo + B * (cp + rbp) * cp].view(B, cp + rbp, cp)
+                    for x in arrays]
+            out.append((widths, nbelow, cp, rbp,
+                        [b[:, :cp].contiguous() for b in blks]
+                        + [b[:, cp:].contiguous() for b in blks]))
+    return out
+
+
+def panel_fns(lu: bool):
+    """(plain, {family: kernel}) of one kind; the kernels take their own
+    layout, the plain version task-major."""
+    from spfx_torch.kernels import panel_lanes, panel_wide
+    if lu:
+        return panel_wide.lu_panel_deltas_plain, {
+            "lanes": panel_lanes.lu_panel_deltas_lanes,
+            "wide": panel_wide.lu_panel_deltas_wide}
+    return panel_wide.chol_panel_deltas_plain, {
+        "lanes": panel_lanes.chol_panel_deltas_lanes,
+        "wide": panel_wide.chol_panel_deltas_wide}
+
+
+def run_family(fam: str, fn, w, nb, blks, cp: int, rbp: int):
+    """One kernel call on task-major blocks; its outputs task-major."""
+    from spfx_torch.kernels.panel_lanes import to_lanes, to_task_major
+    if fam == "lanes":
+        return tuple(to_task_major(t) for t in
+                     fn(w, nb, *(to_lanes(b) for b in blks), cp, rbp))
+    return fn(w, nb, *blks, cp, rbp)
+
+
+def panel_residuals(w, nb, cp: int, rbp: int, blks, outs, lu: bool):
+    """[(what, max |residual|, scale)] of the factor that ``outs`` (the
+    deltas, task-major) make of ``blks``, in f64 on the live part:
+    Cholesky L11 L11^T = D and L21 L11^T = B; LU L11 U11 = D, L21 U11 = BL
+    and U12^T L11^T = BU."""
+    import torch
+    blks = [b.double() for b in blks]
+    outs = [o.double() for o in outs]
+    i = torch.arange(cp, device=w.device)
+    cm = i[None, :] < w[:, None]
+    live = (cm[:, :, None] & cm[:, None, :]).double()
+    bm = ((torch.arange(rbp, device=w.device)[None, :] < nb[:, None])
+          [:, :, None] & cm[:, None, :]).double()
+    mx = lambda t: float(t.abs().max()) if t.numel() else 0.0
+    if lu:
+        DL, DU, BL, BU = blks
+        ddl, ddu, dbl, dbu = outs
+        D = torch.tril(DL * live) + torch.tril(DU * live, -1).transpose(1, 2)
+        L = (DL + ddl) * live
+        U = ((DU + ddu) * live).transpose(1, 2)
+        L21 = (BL + dbl) * bm
+        U12t = (BU + dbu) * bm
+        res = [("L11 U11 = D", (L @ U - D) * live, mx(L) * mx(U) * cp)]
+        if rbp:
+            res += [("L21 U11 = BL", (L21 @ U - BL) * bm,
+                     mx(L21) * mx(U) * cp),
+                    ("U12^T L11^T = BU", (U12t @ L.transpose(1, 2) - BU) * bm,
+                     mx(U12t) * mx(L) * cp)]
+    else:
+        Draw, Braw = blks
+        dd, db = outs
+        Dl = torch.tril(Draw * live)
+        D = Dl + torch.tril(Dl, -1).transpose(1, 2)
+        L = (Draw + dd) * live
+        L21 = (Braw + db) * bm
+        res = [("L11 L11^T = D", (L @ L.transpose(1, 2) - D) * live,
+                mx(L) ** 2 * cp)]
+        if rbp:
+            res.append(("L21 L11^T = B", (L21 @ L.transpose(1, 2) - Braw)
+                        * bm, mx(L21) * mx(L) * cp))
+    return [(what, mx(r), max(s, 1.0)) for what, r, s in res]
+
+
+def check_panels(calls, dtype: str, lu: bool):
+    """Every call of both families of one kind against the plain version,
+    and the reconstructions of ``panel_residuals``. Tolerances: kernel vs
+    plain f32 1e-4, f64 1e-12, relative to the largest entry of the plain
+    outputs (the same recurrences, sums taken in other orders, blocked by
+    32 columns in the wide kernels); reconstructions f32 1e-6, f64 1e-14,
+    relative to cp times the product of the factors' largest entries (a
+    w-term sum's rounding). Returns {kernel name: largest |kernel - plain|}."""
+    import torch
+    td = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 1e-12
+    rtol = 1e-6 if dtype == "float32" else 1e-14
+    kind = "lu" if lu else "chol"
+    plain, fams = panel_fns(lu)
+    worst = {f"{kind}_panel_{f}": 0.0 for f in fams}
+    for w, nb, cp, rbp, blks in calls:
+        blks = [b.to(td) for b in blks]
+        ref = plain(w, nb, *blks, cp, rbp)
+        scale = max(max((float(r.abs().max()) for r in ref if r.numel()),
+                        default=0.0), 1.0)
+        for fam, fn in fams.items():
+            name = f"{kind}_panel_{fam}"
+            outs = run_family(fam, fn, w, nb, blks, cp, rbp)
+            err = max(max_diff(o, r) for o, r in zip(outs, ref))
+            if not err <= tol * scale:
+                fail(f"{name} {dtype} (cp {cp}, rbp {rbp}, B {len(w)}): "
+                     f"{err:.3e} from its plain version")
+            worst[name] = max(worst[name], err)
+            for what, res, s in panel_residuals(w, nb, cp, rbp, blks, outs,
+                                                lu):
+                if not res <= rtol * s:
+                    fail(f"{name} {dtype} (cp {cp}, rbp {rbp}): {what} off "
+                         f"by {res:.3e} (scale {s:.3e})")
+    torch.cuda.synchronize()
+    return worst
+
+
+def panel_rows(calls, dtype: str, lu: bool):
+    """Times (kernel, plain, library) and bound of both families of one kind
+    at the path's largest call by work, and of all of the path's calls in
+    one graph."""
+    import torch
+    from spfx_torch.kernels.panel_lanes import to_lanes
+    td = getattr(torch, dtype)
+    item = torch.tensor([], dtype=td).element_size()
+    work_of = lu_panel_work if lu else chol_panel_work
+    kind = "lu" if lu else "chol"
+    plain, fams = panel_fns(lu)
+    w, nb, cp, rbp, blks = max(calls, key=lambda c: work_of(
+        c[0], c[1], c[2], c[3], item)[1])
+    blks = [b.to(td) for b in blks]
+    bms, by = bound(*work_of(w, nb, cp, rbp, item), dtype)
+    # the library yardstick on the masked blocks: identity on the padding
+    i = torch.arange(cp, device=w.device)
+    cm = i[None, :] < w[:, None]
+    live = cm[:, :, None] & cm[:, None, :]
+    pad = torch.diag_embed((~cm).to(td))
+    bm = (torch.arange(rbp, device=w.device)[None, :] < nb[:, None]
+          )[:, :, None] & cm[:, None, :]
+    if lu:
+        DL, DU, BL, BU = blks
+        low = i[:, None] >= i[None, :]
+        Dm = (torch.where(live & low, DL, 0)
+              + torch.where(live & ~low, DU.transpose(1, 2), 0) + pad)
+        BLm, BUm = torch.where(bm, BL, 0), torch.where(bm, BU, 0)
+
+        def library():
+            LU, _, _ = torch.linalg.lu_factor_ex(Dm, pivot=False)
+            return (torch.linalg.solve_triangular(LU, BLm, upper=True,
+                                                  left=False),
+                    torch.linalg.solve_triangular(
+                        LU.mT, BUm, upper=True, left=False,
+                        unitriangular=True))
+        # lu_factor_ex(pivot=False) cannot be captured in a CUDA graph
+        library_ms = time_ms(library, graph=False)
+    else:
+        Draw, Braw = blks
+        Dl = torch.tril(torch.where(live, Draw, 0))
+        Dm = Dl + torch.tril(Dl, -1).transpose(1, 2) + pad
+        Bmm = torch.where(bm, Braw, 0)
+
+        def library():
+            Lc, _ = torch.linalg.cholesky_ex(Dm)
+            return torch.linalg.solve_triangular(Lc.mT, Bmm, upper=True,
+                                                 left=False)
+        library_ms = time_ms(library)
+    plain_ms = time_ms(lambda: plain(w, nb, *blks, cp, rbp), reps=2,
+                       rounds=3)
+    rows = {}
+    pcd = [(c[0], c[1], c[2], c[3], [b.to(td) for b in c[4]])
+           for c in calls]
+    work = [work_of(c[0], c[1], c[2], c[3], item) for c in pcd]
+    path_bound = bound(sum(b for b, _ in work), sum(o for _, o in work),
+                       dtype)[0]
+    for fam, fn in fams.items():
+        if fam == "lanes":
+            ins = [to_lanes(b) for b in blks]
+            pins = [(c[0], c[1], c[2], c[3], [to_lanes(b) for b in c[4]])
+                    for c in pcd]
+        else:
+            ins, pins = blks, pcd
+
+        def path(fn=fn, pins=pins):
+            for pw, pn, pc, pr, pb in pins:
+                fn(pw, pn, *pb, pc, pr)
+
+        rows[f"{kind}_panel_{fam}"] = dict(
+            shape=f"cp={cp} rbp={rbp} B={len(w)}",
+            ms=time_ms(lambda fn=fn, ins=ins: fn(w, nb, *ins, cp, rbp)),
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+            bound_by=by, path_ms=time_ms(path, reps=1, rounds=3),
+            path_bound_ms=path_bound)
+        del pins
+    return rows
+
+
 def check_getrf(calls, dtype: str):
     """Every getrf_inv call against the plain version, plus the
     reconstructions L U = D, L^{-1} L = I and U U^{-1} = I on the live part
@@ -487,15 +751,43 @@ def is_lu(ctx) -> bool:
 
 
 def predicted_launches(ctx) -> dict:
-    """Launches of one factorization: one window_gather2 per UT step and
-    factor array, one diagonal-block kernel per 32 columns of each PC
-    step (getrf_inv for LU, potrf_inv for Cholesky)."""
+    """Launches of one factorization under the SPFX_PANEL_KERNEL mode set
+    now: one window_gather2 per UT step and factor array; per PC step
+    either one launch of its route's whole-panel kernel or, on the
+    blocked route, one diagonal-block kernel per 32 columns (getrf_inv for
+    LU, potrf_inv for Cholesky)."""
+    from spfx_torch.kernels import _cuda, route
     plan = ctx.plan
-    ut = sum(len(lp.updates) for lp in plan.levels)
-    pi = sum(-(-pb.cp // 32) for lp in plan.levels for pb in lp.panels)
     lu = is_lu(ctx)
-    return {"window_gather2": ut * (2 if lu else 1), "window_gather": 0,
-            "potrf_inv": 0 if lu else pi, "getrf_inv": pi if lu else 0}
+    mode = route.panel_mode()
+    item = 4 if ctx.config.dtype == "float32" else 8
+    want = dict.fromkeys(_cuda.launch_counts(), 0)
+    want["window_gather2"] = sum(len(lp.updates)
+                                 for lp in plan.levels) * (2 if lu else 1)
+    for lp in plan.levels:
+        for pb in lp.panels:
+            r = route.route_panel(pb.cp, pb.rbp, len(pb.widths), item, lu,
+                                  mode=mode)
+            if r == "blocked":
+                want["getrf_inv" if lu else "potrf_inv"] += -(-pb.cp // 32)
+            else:
+                want[f"{'lu' if lu else 'chol'}_panel_{r}"] += 1
+    return want
+
+
+@contextlib.contextmanager
+def panel_env(mode):
+    """Run a block with SPFX_PANEL_KERNEL set to ``mode`` (None: unset),
+    restoring the variable afterwards."""
+    old = os.environ.pop("SPFX_PANEL_KERNEL", None)
+    if mode is not None:
+        os.environ["SPFX_PANEL_KERNEL"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("SPFX_PANEL_KERNEL", None)
+        if old is not None:
+            os.environ["SPFX_PANEL_KERNEL"] = old
 
 
 def plan_summary(ctx) -> dict:
@@ -518,10 +810,12 @@ def factor_arrays(f):
     return (f.Lx, f.Ux) if hasattr(f, "Ux") else (f.L,)
 
 
-def main_path(ctx, A, label: str, repeats: int = 3):
+def main_path(ctx, A, label: str, repeats: int = 3,
+              unrefined_limit: float | None = None):
     """Factorize (launch counts checked against the plan: every kernel of
     the path launched, as often as the plan says), time repeats, solve
-    with refinement; returns (factor, launches, report)."""
+    with refinement (and, given ``unrefined_limit``, check the residual
+    without refinement against it); returns (factor, launches, report)."""
     import torch
     from spfx_torch import scaled_residual, synth_rhs
     from spfx_torch.kernels import _cuda
@@ -562,12 +856,16 @@ def main_path(ctx, A, label: str, repeats: int = 3):
     log(f"[{label}] " + json.dumps(rep))
     if not res <= 1e-12:
         fail(f"{label}: scaled residual {res:.3e} > 1e-12")
+    if unrefined_limit is not None and not r0 <= unrefined_limit:
+        fail(f"{label}: scaled residual without refinement {r0:.3e} > "
+             f"{unrefined_limit:g}")
     return f, launches, rep
 
 
-def profile_pass(ctx, A, name: str):
+def profile_pass(ctx, A, name: str) -> float:
     """One factorization under torch.profiler; the kernel table goes to
-    chiprun_out/<name>.txt."""
+    chiprun_out/<name>.txt. Returns the device time in ms: the sum of the
+    CUDA kernels' self times, as the table's footer counts it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ctx.factorize(A)
@@ -576,12 +874,16 @@ def profile_pass(ctx, A, name: str):
                              ProfilerActivity.CUDA]) as prof:
         ctx.factorize(A)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=25)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / 1e3
+    table = events.table(sort_by="cuda_time_total", row_limit=25)
     with open(os.path.join(ROOT, "chiprun_out", f"{name}.txt"), "w") as fh:
         fh.write(table)
-    log(table[:6000])
+    log(f"[profile] {name}: device time {device_ms:.3f} ms (kernel table "
+        f"in chiprun_out/{name}.txt)")
+    return device_ms
 
 
 def unsym_laplacian(k: int):
@@ -627,6 +929,9 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    _LOG.append(open(os.path.join(ROOT, "chiprun_out", "chip_smoke.log"),
+                     "w"))
     import spfx_torch
     from spfx_torch import Config
     from spfx_torch.io import generate
@@ -690,77 +995,113 @@ def main(argv) -> int:
     del pcalls, lcalls
     torch.cuda.empty_cache()
 
-    # 4. Cholesky main path, 48^3 f32 with the default Config
-    _, launches, _ = main_path(ctx, A, f"main {GRID}^3 float32")
-    if "--profile" in argv:
-        profile_pass(ctx, A, "chip_smoke_profile")
-    del ctx
-    torch.cuda.empty_cache()
+    # 3c. the whole-panel kernels at every PC step of the 48^3 plans
+    for lu, c in ((False, ctx), (True, lctx)):
+        calls = panel_calls(c, dev)
+        kind = "lu" if lu else "chol"
+        for dtype in ("float32", "float64"):
+            t0 = time.perf_counter()
+            worst = check_panels(calls, dtype, lu)
+            errs.update({(k, dtype): v for k, v in worst.items()})
+            log(f"[kernels] {dtype}: {len(calls)} calls each of "
+                f"{kind}_panel_lanes and {kind}_panel_wide, max abs err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                + f" ({time.perf_counter() - t0:.1f} s)")
+        prow = panel_rows(calls, "float32", lu)
+        log(f"[kernels] f32 timing {kind} panels " + json.dumps(prow))
+        rows.update(prow)
+        del calls
+        torch.cuda.empty_cache()
 
-    # 4b. LU main path, 48^3 f32 with the default Config
-    _, lu_launches, _ = main_path(lctx, A, f"LU {GRID}^3 float32")
-    if "--profile" in argv:
-        profile_pass(lctx, A, "chip_smoke_profile_lu")
-    del lctx
+    # 4. Cholesky main path, 48^3 f32 with the default Config; 4c. the same
+    # under SPFX_PANEL_KERNEL=lanes, then wide
+    paths = {}
+    device_ms = {}
+    for lu, c, kind in ((False, ctx, "cholesky"), (True, lctx, "lu")):
+        for mode in (None, "lanes", "wide"):
+            path = kind if mode is None else f"{kind}_{mode}"
+            label = (("LU " if lu else "main ") + f"{GRID}^3 float32"
+                     + ("" if mode is None else f" {mode}"))
+            with panel_env(mode):
+                _, paths[path], _ = main_path(
+                    c, A, label, repeats=3 if mode is None else 1)
+                if "--profile" in argv:
+                    device_ms[path] = profile_pass(
+                        c, A, "chip_smoke_profile" + ("_lu" if lu else "")
+                        + ("" if mode is None else f"_{mode}"))
+    del ctx, lctx, c
     torch.cuda.empty_cache()
+    if device_ms:
+        log("[profile] device ms by path " + json.dumps(device_ms))
 
-    # 5. f64 at 32^3
+    # 5. f64 at 32^3; 5c. the same under lanes, without refinement
     A32 = generate.laplacian_3d(GRID_F64)
     ctx64 = spfx_torch.Cholesky(A32, Config(dtype="float64"), device=dev)
     main_path(ctx64, A32, f"f64 {GRID_F64}^3 float64")
+    with panel_env("lanes"):
+        main_path(ctx64, A32, f"f64 {GRID_F64}^3 float64 lanes", repeats=1,
+                  unrefined_limit=1e-12)
     del ctx64
 
-    # 5b. LU in f64 at 32^3, unsymmetric values
+    # 5b. LU in f64 at 32^3, unsymmetric values; 5c. the same under wide,
+    # without refinement
     A32u = unsym_laplacian(GRID_F64)
     lctx64 = spfx_torch.LU(A32u, Config(dtype="float64"), device=dev)
     log(f"[plan] LU unsym {GRID_F64}^3 analyze {lctx64.analyze_time:.2f} s "
         f"plan {lctx64.plan_time:.2f} s, max |A - A^T| "
         f"{abs(A32u - A32u.T).max():.3f}")
     main_path(lctx64, A32u, f"LU unsym {GRID_F64}^3 float64")
+    with panel_env("wide"):
+        main_path(lctx64, A32u, f"LU unsym {GRID_F64}^3 float64 wide",
+                  repeats=1, unrefined_limit=1e-12)
     del lctx64
 
-    # 6. the card against the CPU (plain versions), 12^3 f64
+    # 6. the card against the CPU (plain versions), 12^3 f64, Cholesky and
+    # (6b) LU with unsymmetric values, both flat factors; 6c. the same
+    # under each panel route
     A12 = generate.laplacian_3d(GRID_CPU)
-    cfg = Config(dtype="float64")
-    Lg = spfx_torch.cholesky(A12, cfg, device=dev).L.cpu()
-    Lc = spfx_torch.cholesky(A12, cfg, device="cpu").L
-    rel = float((Lg - Lc).abs().max() / Lc.abs().max())
-    log(f"[card vs cpu] {GRID_CPU}^3 f64 max rel diff {rel:.3e}")
-    if not rel <= 1e-10:
-        fail(f"card and CPU factors differ by {rel:.3e}")
-
-    # 6b. the same for LU, unsymmetric values, both flat factors
     A12u = unsym_laplacian(GRID_CPU)
-    fg = spfx_torch.lu(A12u, cfg, device=dev)
-    fc = spfx_torch.lu(A12u, cfg, device="cpu")
-    for name, g, c in (("Lx", fg.Lx, fc.Lx), ("Ux", fg.Ux, fc.Ux)):
-        rel = float((g.cpu() - c).abs().max() / c.abs().max())
-        log(f"[card vs cpu] LU unsym {GRID_CPU}^3 f64 {name} max rel diff "
-            f"{rel:.3e}")
-        if not rel <= 1e-10:
-            fail(f"card and CPU LU factors ({name}) differ by {rel:.3e}")
+    cfg = Config(dtype="float64")
+    for mode in (None, "lanes", "wide", "mixed"):
+        tag = "" if mode is None else f" {mode}"
+        with panel_env(mode):
+            Lg = spfx_torch.cholesky(A12, cfg, device=dev).L.cpu()
+            Lc = spfx_torch.cholesky(A12, cfg, device="cpu").L
+            fg = spfx_torch.lu(A12u, cfg, device=dev)
+            fc = spfx_torch.lu(A12u, cfg, device="cpu")
+        for name, g, c in (("L", Lg, Lc), ("LU unsym Lx", fg.Lx, fc.Lx),
+                           ("LU unsym Ux", fg.Ux, fc.Ux)):
+            rel = float((g.cpu() - c).abs().max() / c.abs().max())
+            log(f"[card vs cpu] {GRID_CPU}^3 f64{tag} {name} max rel diff "
+                f"{rel:.3e}")
+            if not rel <= 1e-10:
+                fail(f"card and CPU factors ({name}{tag}) differ by "
+                     f"{rel:.3e}")
 
     # 7. the kernels line: launches from the kernel's own path (window
-    # gathers and potrf_inv: Cholesky; getrf_inv: LU), both paths listed
-    src = {"window_gather2": "spfx_torch/kernels/csrc/window_gather.cu",
-           "window_gather": "spfx_torch/kernels/csrc/window_gather.cu",
-           "potrf_inv": "spfx_torch/kernels/csrc/potrf_inv.cu",
-           "getrf_inv": "spfx_torch/kernels/csrc/getrf_inv.cu"}
-    rep_ = {"window_gather2": "spfx/kernels/pallas_blocks.py:100",
-            "window_gather": "spfx/kernels/pallas_blocks.py:48",
-            "potrf_inv": "spfx/kernels/pallas_blocks.py:1074",
-            "getrf_inv": "spfx/kernels/pallas_blocks.py:1138"}
+    # gathers and potrf_inv: Cholesky; getrf_inv: LU; each whole-panel
+    # kernel: its kind under its route), every path listed
+    cu = "spfx_torch/kernels/csrc/"
+    pb = "spfx/kernels/pallas_blocks.py:"
+    info = {  # name: (source, TPU kernel, own path)
+        "window_gather2": (cu + "window_gather.cu", pb + "100", "cholesky"),
+        "window_gather": (cu + "window_gather.cu", pb + "48", "cholesky"),
+        "potrf_inv": (cu + "potrf_inv.cu", pb + "1074", "cholesky"),
+        "getrf_inv": (cu + "getrf_inv.cu", pb + "1138", "lu"),
+        "chol_panel_lanes": (cu + "panel_lanes.cu", pb + "386",
+                             "cholesky_lanes"),
+        "lu_panel_lanes": (cu + "panel_lanes.cu", pb + "526", "lu_lanes"),
+        "chol_panel_wide": (cu + "panel_wide.cu", pb + "807",
+                            "cholesky_wide"),
+        "lu_panel_wide": (cu + "panel_wide.cu", pb + "969", "lu_wide"),
+    }
     kernels = []
-    for name in ("window_gather2", "window_gather", "potrf_inv",
-                 "getrf_inv"):
+    for name, (source, replaces, own) in info.items():
         r = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name],
-            "replaces": rep_[name],
-            "launches": (lu_launches if name == "getrf_inv"
-                         else launches)[name],
-            "launches_by_path": {"cholesky": launches[name],
-                                 "lu": lu_launches[name]},
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": paths[own][name],
+            "launches_by_path": {p: l[name] for p, l in paths.items()},
             "max_abs_err": errs[(name, "float32")], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -771,11 +1112,12 @@ def main(argv) -> int:
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"non-finite number in the kernels line: {k}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
+    _LOG.pop().close()
     return 0
 
 

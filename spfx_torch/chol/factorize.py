@@ -5,8 +5,9 @@ and the same static plan as the JAX package (``spfx_torch.symbolic``,
 ``spfx_torch.plan``). The device then scatters the permuted lower-triangle
 values into one flat panel tensor and walks the plan's levels, in place:
 each level's UT update buckets (``blocks.apply_updates_sym_t``), then its
-PC panel buckets (``blocks.factor_panels_chol_u``). The solve copies the
-factor back and runs the native f64 supernodal solve with iterative
+PC panel buckets (``blocks.factor_panels_chol_u``), with the panel-kernel
+family that ``SPFX_PANEL_KERNEL`` selects, read once per factorization
+(``kernels/route.py``). The solve copies the factor back and runs the native f64 supernodal solve with iterative
 refinement on the host.
 
 Everything runs on the CUDA device unless the caller passes ``device``
@@ -26,7 +27,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from spfx_torch.kernels import blocks
+from spfx_torch.kernels import blocks, route
 from spfx_torch.plan.schedule import ALIGN, FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
@@ -285,6 +286,7 @@ class Cholesky:
         A = sp.csc_matrix(A)
         cfg = self.config
         dev = self.device
+        mode = route.panel_mode()      # SPFX_PANEL_KERNEL, once a call
         t0 = time.perf_counter()
         vals = self.entry_values(A)
         if self._asm_idx is None:
@@ -309,7 +311,7 @@ class Cholesky:
                     widths, nbelow, _ = pb.to_u(dev)
                     blocks.factor_panels_chol_u(
                         L, widths, nbelow, int(pb.slab_lo[0]),
-                        cp=pb.cp, rbp=pb.rbp)
+                        cp=pb.cp, rbp=pb.rbp, mode=mode)
         f = CholeskyFactor(A, self.sym, self.plan, L, cfg)
         return finish_factorize(self, f, t0)
 

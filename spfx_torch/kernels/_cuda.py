@@ -30,6 +30,11 @@ _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
 _vp = ctypes.c_void_p
 
+# whole-panel kernels: (widths, nbelow, inputs..., outputs..., workspace,
+# B, cp, rbp, stream)
+_PANEL_CHOL = [_vp] * 7 + [_c_int] * 3 + [_vp]
+_PANEL_LU = [_vp] * 11 + [_c_int] * 3 + [_vp]
+
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "window_gather": {
@@ -46,13 +51,22 @@ _SIGNATURES = {
         "spfx_getrf_inv_f64": [_vp, _vp, _vp, _vp, _vp, _vp, _c_int, _c_int,
                                _vp],
     },
+    "panel_lanes": {f"spfx_{kind}_panel_lanes_{t}": sig
+                    for kind, sig in (("chol", _PANEL_CHOL),
+                                      ("lu", _PANEL_LU))
+                    for t in ("f32", "f64")},
+    "panel_wide": {f"spfx_{kind}_panel_wide_{t}": sig
+                   for kind, sig in (("chol", _PANEL_CHOL),
+                                     ("lu", _PANEL_LU))
+                   for t in ("f32", "f64")},
 }
 
 _libs: dict = {}
 build_log: dict = {}          # source name -> nvcc's output (ptxas -v)
 
 _launches = {"window_gather2": 0, "window_gather": 0, "potrf_inv": 0,
-             "getrf_inv": 0}
+             "getrf_inv": 0, "chol_panel_lanes": 0, "lu_panel_lanes": 0,
+             "chol_panel_wide": 0, "lu_panel_wide": 0}
 
 
 def count(name: str) -> None:

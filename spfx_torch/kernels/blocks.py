@@ -10,9 +10,13 @@ view of the flat tensor and is updated where it lies).
 - UT update step: two superwindow gathers (``gather.window_gather2``), the
   masked product C = G H^T, C's columns placed at their target columns, and
   the extend-add of the valid rows into the target slab;
-- PC panel step: the NB = 32 blocked panel factorization, whose diagonal
-  blocks go through ``panel.potrf_inv`` (LU: ``panel.getrf_inv``); the
-  panel solves and the trailing updates are batched matrix products.
+- PC panel step: the routers ``_chol_deltas_blocks`` and
+  ``_lu_deltas_blocks`` pick a kernel family per bucket with
+  ``route.route_panel`` under the ``SPFX_PANEL_KERNEL`` mode the engine
+  read: the default NB = 32 blocked panel factorization, whose diagonal
+  blocks go through ``panel.potrf_inv`` (LU: ``panel.getrf_inv``) and whose
+  panel solves and trailing updates are batched matrix products, or one
+  whole-panel kernel per bucket (``panel_lanes``, ``panel_wide``).
 
 LU stores L (unit diagonal, zeros above it) in ``Lx`` and U^T (U's
 diagonal on its diagonal) in ``Ux``, slot for slot in the same panel
@@ -24,7 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from spfx_torch.kernels import gather, panel
+from spfx_torch.kernels import (gather, panel, panel_lanes, panel_wide,
+                                route)
+from spfx_torch.kernels.panel_lanes import to_lanes, to_task_major
 from spfx_torch.plan.schedule import ALIGN
 
 NB = panel.NB
@@ -97,15 +103,35 @@ def _chol_deltas_blocked(Draw, Braw, widths, nbelow, cp: int, rbp: int):
     return dD, dB
 
 
-def factor_panels_chol_u(L, widths, nbelow, slab_lo: int, cp: int, rbp: int):
+def _chol_deltas_blocks(Draw, Braw, widths, nbelow, cp: int, rbp: int,
+                        mode: str = "blocked"):
+    """Cholesky panel deltas (dD, dB) of task-major blocks Draw
+    (B, cp, cp) / Braw (B, rbp, cp), by the route ``route.route_panel``
+    gives the class under ``mode``: the blocked path, the lanes kernel (in
+    its (rows, cp, B) layout, there and back) or the wide kernel."""
+    B = widths.shape[0]
+    r = route.route_panel(cp, rbp, B, Draw.element_size(), mode=mode)
+    if r == "lanes":
+        ddT, dbT = panel_lanes.chol_panel_deltas_lanes(
+            widths, nbelow, to_lanes(Draw), to_lanes(Braw), cp, rbp)
+        return to_task_major(ddT), to_task_major(dbT)
+    if r == "wide":
+        return panel_wide.chol_panel_deltas_wide(
+            widths, nbelow, Draw.contiguous(), Braw.contiguous(), cp, rbp)
+    return _chol_deltas_blocked(Draw, Braw, widths, nbelow, cp, rbp)
+
+
+def factor_panels_chol_u(L, widths, nbelow, slab_lo: int, cp: int, rbp: int,
+                         mode: str = "blocked"):
     """Factor one uniform panel bucket IN PLACE: the bucket's B panels are
     contiguous at [slab_lo, slab_lo + B*(cp+rbp)*cp) with task stride
-    (cp+rbp)*cp (see PanelBucketC)."""
+    (cp+rbp)*cp (see PanelBucketC). ``mode`` is the panel-kernel mode
+    (``route.panel_mode()``)."""
     B = widths.shape[0]
     S = (cp + rbp) * cp
     blk = L[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
-    dd, db = _chol_deltas_blocked(blk[:, :cp, :], blk[:, cp:, :],
-                                  widths, nbelow, cp, rbp)
+    dd, db = _chol_deltas_blocks(blk[:, :cp, :], blk[:, cp:, :],
+                                 widths, nbelow, cp, rbp, mode)
     blk[:, :cp, :] += dd
     if rbp:
         blk[:, cp:, :] += db
@@ -279,17 +305,40 @@ def _lu_deltas_blocked(DLraw, DUraw, BLraw, BUraw, widths, nbelow,
     return dDL, empty, dDU, empty
 
 
+def _lu_deltas_blocks(DLraw, DUraw, BLraw, BUraw, widths, nbelow, cp: int,
+                      rbp: int, mode: str = "blocked"):
+    """LU panel deltas of task-major blocks, routed as
+    ``_chol_deltas_blocks`` (with lu=True). Returns (dDL, dBL, dDU, dBU),
+    the order of ``_lu_deltas_blocked``; the kernels return (ddl, ddu, dbl,
+    dbu)."""
+    B = widths.shape[0]
+    r = route.route_panel(cp, rbp, B, DLraw.element_size(), lu=True,
+                          mode=mode)
+    if r == "lanes":
+        ddl, ddu, dbl, dbu = panel_lanes.lu_panel_deltas_lanes(
+            widths, nbelow, *(to_lanes(t) for t in (DLraw, DUraw, BLraw,
+                                                  BUraw)), cp, rbp)
+        return tuple(to_task_major(t) for t in (ddl, dbl, ddu, dbu))
+    if r == "wide":
+        ddl, ddu, dbl, dbu = panel_wide.lu_panel_deltas_wide(
+            widths, nbelow, *(t.contiguous() for t in (DLraw, DUraw, BLraw,
+                                                       BUraw)), cp, rbp)
+        return ddl, dbl, ddu, dbu
+    return _lu_deltas_blocked(DLraw, DUraw, BLraw, BUraw, widths, nbelow,
+                              cp, rbp)
+
+
 def factor_panels_lu_u(Lx, Ux, widths, nbelow, slab_lo: int, cp: int,
-                       rbp: int):
+                       rbp: int, mode: str = "blocked"):
     """Factor one uniform LU panel bucket IN PLACE on the same block of Lx
     and Ux (see factor_panels_chol_u)."""
     B = widths.shape[0]
     S = (cp + rbp) * cp
     bl = Lx[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
     bu = Ux[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
-    dDL, dBL, dDU, dBU = _lu_deltas_blocked(
+    dDL, dBL, dDU, dBU = _lu_deltas_blocks(
         bl[:, :cp, :], bu[:, :cp, :], bl[:, cp:, :], bu[:, cp:, :],
-        widths, nbelow, cp, rbp)
+        widths, nbelow, cp, rbp, mode)
     bl[:, :cp, :] += dDL
     bu[:, :cp, :] += dDU
     if rbp:

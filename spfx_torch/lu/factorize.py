@@ -7,7 +7,8 @@ diagonal on its diagonal), slot for slot. The device scatters the permuted
 L-lower and U^T strict-lower values into the two tensors and walks the
 plan's levels in place, as the Cholesky executor does: each level's UT
 update buckets (``blocks.apply_updates_lu_t``), then its PC panel buckets
-(``blocks.factor_panels_lu_u``). The solve copies both factors back and
+(``blocks.factor_panels_lu_u``, routed by ``SPFX_PANEL_KERNEL`` as for
+Cholesky). The solve copies both factors back and
 runs the native f64 supernodal solve with iterative refinement against the
 user's matrix on the host.
 
@@ -30,7 +31,7 @@ import torch
 from spfx_torch.chol.factorize import (
     _DTYPES, check_config, check_windows, finish_factorize, matmul_precision,
     refined_solve, resolve_device, update_precision)
-from spfx_torch.kernels import blocks
+from spfx_torch.kernels import blocks, route
 from spfx_torch.plan.schedule import FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
@@ -166,6 +167,7 @@ class LU:
         A = sp.csc_matrix(A)
         cfg = self.config
         dev = self.device
+        mode = route.panel_mode()      # SPFX_PANEL_KERNEL, once a call
         t0 = time.perf_counter()
         vals_l, vals_u = self.entry_values(A)
         if self._asm_idx is None:
@@ -192,7 +194,7 @@ class LU:
                     widths, nbelow, _ = pb.to_u(dev)
                     blocks.factor_panels_lu_u(
                         Lx, Ux, widths, nbelow, int(pb.slab_lo[0]),
-                        cp=pb.cp, rbp=pb.rbp)
+                        cp=pb.cp, rbp=pb.rbp, mode=mode)
         f = LUFactor(A, self.sym, self.plan, Lx, Ux, cfg,
                      row_perm=self.row_perm)
         return finish_factorize(self, f, t0)

@@ -156,7 +156,9 @@ def test_update_precision_restores_torch_state():
 
 def test_import_leaves_no_jax():
     code = ("import sys, spfx_torch, spfx_torch.interop, "
-            "spfx_torch.lu.factorize, spfx_torch.lu.pivot\n"
+            "spfx_torch.lu.factorize, spfx_torch.lu.pivot, "
+            "spfx_torch.kernels.route, spfx_torch.kernels.panel_lanes, "
+            "spfx_torch.kernels.panel_wide\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spfx')]\n"
             "print(','.join(bad))\n")
@@ -178,7 +180,8 @@ def test_port_sources_import_no_jax():
     anywhere in spfx_torch/ or chip_smoke.py."""
     srcs = list(_port_sources())
     assert len(srcs) > 10
-    for f in ("lu/factorize.py", "lu/pivot.py"):
+    for f in ("lu/factorize.py", "lu/pivot.py", "kernels/route.py",
+              "kernels/panel_lanes.py", "kernels/panel_wide.py"):
         assert os.path.join(ROOT, "spfx_torch", f) in srcs
     for path in srcs:
         tree = ast.parse(open(path).read(), path)
