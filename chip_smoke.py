@@ -7,7 +7,8 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
-2. build: the CUDA kernels from spfx_torch/kernels/csrc, timed;
+2. build: the CUDA kernels from spfx_torch/kernels/csrc (eight sources,
+   one nvcc each, started together), timed;
 3. kernels: every window_gather2 and potrf_inv call of the 48^3 f32
    Cholesky plan (the starts of its UT buckets, the 32x32 diagonal blocks
    of its PC buckets after assembly), in f32 and f64, against the plain
@@ -23,9 +24,20 @@ non-zero):
    L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part; then
    times of kernel, plain version and library calls at the largest call
    by work, and each kernel's bound;
+3d. extend_add_rows at every UT step of the 48^3 Cholesky plan (1,126
+   calls: each step's row table and slab view of a seeded flat array, E
+   seeded in the step's shape), in f32 and f64, against the plain version;
+   every row on one slab row (integer values, exact) and every row dropped
+   (slab untouched); times of kernel, plain version and the masked
+   index_add_ at the largest call, its bound, and the whole path's calls
+   in one graph;
+3e. cholesky_small_batched at (64, 8), c = 1, 7, 16 and (65,536, 32), f32
+   and f64, against the plain version, with L L^T = D and exact zeros above
+   the diagonal; times against torch.linalg.cholesky_ex at (65,536, 32);
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
-   default Config, launch counts against the plan, factorization times,
-   GFLOP/s, peak memory, and the refined solve's scaled residual
+   default Config, launch counts against the plan (window_gather2 and
+   extend_add_rows once per UT step and factor array), factorization
+   times, GFLOP/s, peak memory, and the refined solve's scaled residual
    (<= 1e-12);
 4b. LU main path: spfx_torch.LU(laplacian_3d(48)) with the default Config,
    the same checks;
@@ -41,8 +53,13 @@ non-zero):
 6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
 6b. the same for LU, on the unsymmetric 12^3 matrix, both flat factors;
 6c. the same for both kinds under SPFX_PANEL_KERNEL=lanes, wide and mixed;
-7. the ``kernels`` JSON line (eight kernels), then the final ``ok`` JSON
-   line.
+6d. the panel bench, spfx_torch.bench.panels.main() at its full size (2^16
+   tasks): the four strategies' GFLOP/s, its launches (a path of its own),
+   the custom kernel's S and G against the einsum strategy, and the times
+   of syrk_gemm_batched, its plain version and a torch.bmm pair, with its
+   bound;
+7. the ``kernels`` JSON line (eleven kernels), the nvidia-smi line, then
+   the final ``ok`` JSON line.
 
 ``--profile`` adds a torch.profiler pass over one 48^3 factorization of
 each kind under each route (default, lanes, wide), prints each one's
@@ -56,6 +73,7 @@ either it prints no result and exits 2.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -67,11 +85,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50e6                    # H100 L2 cache, same source
 PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core rates, same source
               "float64": 34e12}
 GRID = 48                          # the headline matrix, laplacian_3d(48)
 GRID_F64 = 32                      # the double-precision cases
 GRID_CPU = 12                      # card against CPU
+SMALL_BATCH = 65536                # cholesky_small_batched's (batch, 32)
 
 
 _LOG = []           # the open log file, once main() has started
@@ -742,6 +762,251 @@ def path_kernel_ms(L, gcalls, pcalls, dtype: str):
 
 
 # --------------------------------------------------------------------------
+# phase 3d: extend_add_rows at every UT step
+# --------------------------------------------------------------------------
+
+def extend_add_calls(plan, dev):
+    """(slab_lo, srows, csp, rows) of every UT step of the plan: the
+    step's slab of the flat factor and its row table (one entry per row of
+    the step's E)."""
+    return [(int(ub.slab_lo[0]), ub.slab_rows, ub.csp, ub.rows_to(dev))
+            for lp in plan.levels for ub in lp.updates]
+
+
+def extend_add_bytes(rows, csp: int, item: int) -> float:
+    """Bytes that one extend_add_rows call must move: each live row of E
+    read once, each distinct slab row it names read and written once (rows
+    of E that share a slab row share its traffic), plus the table."""
+    import torch
+    live = rows[rows >= 0]
+    return float((live.numel() + 2 * torch.unique(live).numel()) * csp * item
+                 + 4 * rows.shape[0])
+
+
+def check_extend_add(L, calls, dtype: str, gen):
+    """Every call against the plain version on the card, E seeded in the
+    step's shape, the kernel in place on the step's slab view of L.
+    Tolerance: f32 1e-6, f64 1e-14 of the slab's largest entry (repeated
+    rows summed in another order: atomics on the card). Then two
+    adversarial calls at the largest step's shape: every row on one slab
+    row (integer values, so any order gives the plain version's bits) and
+    every row dropped (the slab untouched, bit for bit). Returns the
+    largest |kernel - plain|."""
+    import torch
+    from spfx_torch.kernels import extend_add
+    tol = 1e-6 if dtype == "float32" else 1e-14
+    worst = 0.0
+    for lo, srows, csp, rows in calls:
+        slab = L[lo:lo + srows * csp].view(srows, csp)
+        E = torch.randn((rows.shape[0], csp), generator=gen,
+                        device=L.device, dtype=L.dtype)
+        ref = extend_add.extend_add_rows_plain(slab.clone(), rows, E)
+        extend_add.extend_add_rows(slab, rows, E)
+        err = max_diff(slab, ref)
+        if not err <= tol * float(ref.abs().max()):
+            fail(f"extend_add_rows {dtype} (srows {srows}, csp {csp}, "
+                 f"{rows.shape[0]} rows): {err:.3e} from its plain version")
+        worst = max(worst, err)
+    lo, srows, csp, rows = max(calls, key=lambda c: c[3].shape[0] * c[2])
+    slab = torch.round(4 * L[lo:lo + srows * csp].view(srows, csp))
+    E = torch.round(4 * torch.randn((rows.shape[0], csp), generator=gen,
+                                    device=L.device, dtype=L.dtype))
+    one = torch.full_like(rows, srows // 2)
+    ref = extend_add.extend_add_rows_plain(slab.clone(), one, E)
+    if not torch.equal(extend_add.extend_add_rows(slab, one, E), ref):
+        fail(f"extend_add_rows {dtype}: {rows.shape[0]} rows on one slab "
+             "row differ from the plain version")
+    before = slab.clone()
+    extend_add.extend_add_rows(slab, torch.full_like(rows, -1), E)
+    if not torch.equal(slab, before):
+        fail(f"extend_add_rows {dtype}: dropped rows changed the slab")
+    torch.cuda.synchronize()
+    return worst
+
+
+def rotating(fn, inputs):
+    """A call of ``fn`` that takes the next input set of ``inputs`` each
+    time, round robin: captured in a graph, the rotation is recorded, so
+    no set is met again until the others have passed through the cache."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(*next(it))
+
+
+def extend_add_rows_row(L, calls, dtype: str, gen):
+    """Times (kernel, plain, library: the masked index_add_ it replaces)
+    and bound at the path's largest call by bytes, and of all of the path's
+    calls in one graph (their E views of one seeded buffer). The largest
+    call's slab and E fit in the 50 MB L2 cache, so its calls rotate over
+    copies of them (slab, E and the library's masked E) that together
+    exceed twice the L2: each call meets its inputs in device memory, as
+    the byte bound assumes."""
+    import torch
+    from spfx_torch.kernels import extend_add
+    item = L.element_size()
+    lo, srows, csp, rows = max(calls, key=lambda c: extend_add_bytes(
+        c[3], c[2], item))
+    live = rows >= 0
+    idx = torch.where(live, rows, 0).long()
+    copies = min(16, 1 + int(2 * L2_BYTES
+                             // ((srows + 2 * rows.shape[0]) * csp * item)))
+    sets = []
+    for _ in range(copies):
+        E = torch.randn((rows.shape[0], csp), generator=gen, device=L.device,
+                        dtype=L.dtype)
+        sets.append((L[lo:lo + srows * csp].view(srows, csp).clone(), E,
+                     torch.where(live[:, None], E, 0)))
+    bms, by = bound(extend_add_bytes(rows, csp, item), 0.0, dtype)
+    row = dict(
+        shape=f"srows={srows} csp={csp} RE={rows.shape[0]} live="
+              f"{int(live.sum())} "
+              f"targets={torch.unique(rows[live]).numel()}",
+        ms=time_ms(rotating(lambda s, e, _: extend_add.extend_add_rows(
+            s, rows, e), sets)),
+        plain_ms=time_ms(rotating(
+            lambda s, e, _: extend_add.extend_add_rows_plain(s, rows, e),
+            sets)),
+        library_ms=time_ms(rotating(
+            lambda s, _, em: s.index_add_(0, idx, em, alpha=-1), sets)),
+        bound_ms=bms, bound_by=by)
+    del sets
+    buf = torch.randn(max(c[3].shape[0] * c[2] for c in calls),
+                      generator=gen, device=L.device, dtype=L.dtype)
+    pins = [(L[lo:lo + sr * cs].view(sr, cs), r,
+             buf[:r.shape[0] * cs].view(-1, cs))
+            for lo, sr, cs, r in calls]
+
+    def path():
+        for s, r, e in pins:
+            extend_add.extend_add_rows(s, r, e)
+
+    row["path_ms"] = time_ms(path, reps=1, rounds=3)
+    row["path_bound_ms"] = bound(sum(extend_add_bytes(r, cs, item)
+                                     for _, _, cs, r in calls), 0.0,
+                                 dtype)[0]
+    return row
+
+
+# --------------------------------------------------------------------------
+# phase 3e: cholesky_small_batched
+# --------------------------------------------------------------------------
+
+def small_spd(batch: int, c: int, dev, gen):
+    """(D with junk above the diagonal, the SPD matrix of its lower
+    triangle), f64: X X^T + c I."""
+    import torch
+    X = torch.randn(batch, c, c, generator=gen, device=dev,
+                    dtype=torch.float64)
+    D = X @ X.transpose(1, 2) + c * torch.eye(c, device=dev,
+                                              dtype=torch.float64)
+    return D + torch.triu(torch.full_like(D, 1e3), 1), D
+
+
+def check_chol_small(dev, gen):
+    """(64, 8), c in {1, 7, 16} and (65,536, 32), f32 and f64, against the
+    plain version (f32 1e-4, f64 1e-12 of the largest entry: the same
+    recurrence, sums in other orders and fused on the card), L L^T = D
+    (f32 1e-5, f64 1e-12 of D's largest entry) and exact zeros above the
+    diagonal. Returns {dtype: largest |kernel - plain|}."""
+    import torch
+    from spfx_torch.kernels import chol_small
+    worst = {}
+    for batch, c in ((64, 8), (64, 1), (64, 7), (64, 16), (SMALL_BATCH, 32)):
+        Dj, D = small_spd(batch, c, dev, gen)
+        for dtype in ("float32", "float64"):
+            td = getattr(torch, dtype)
+            L = chol_small.cholesky_small_batched(Dj.to(td))
+            ref = chol_small.cholesky_small_batched_plain(Dj.to(td))
+            err = max_diff(L, ref)
+            tol, rtol = (1e-4, 1e-5) if dtype == "float32" else (1e-12, 1e-12)
+            if not err <= tol * max(float(ref.abs().max()), 1.0):
+                fail(f"cholesky_small_batched {dtype} ({batch}, {c}): "
+                     f"{err:.3e} from its plain version")
+            Ld = L.double()
+            rec = float((Ld @ Ld.transpose(1, 2) - D).abs().max())
+            if not rec <= rtol * float(D.abs().max()):
+                fail(f"cholesky_small_batched {dtype} ({batch}, {c}): "
+                     f"L L^T = D off by {rec:.3e}")
+            if not bool((torch.triu(L, 1) == 0).all()):
+                fail(f"cholesky_small_batched {dtype} ({batch}, {c}): "
+                     "nonzero above the diagonal")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    torch.cuda.synchronize()
+    return worst
+
+
+def chol_small_row(dev, gen):
+    """Times (kernel, plain, library: cholesky_ex of the symmetric matrix)
+    and bound at (65,536, 32) f32: each matrix's lower triangle read,
+    c(c+1)/2 values, its factor written, c^2, for c^3/3 flops."""
+    import torch
+    from spfx_torch.kernels import chol_small
+    batch, c = SMALL_BATCH, 32
+    Dj, D = small_spd(batch, c, dev, gen)
+    Dj, D = Dj.float(), D.float()
+    bms, by = bound(batch * (c * (c + 1) / 2 + c * c) * 4.0,
+                    batch * c ** 3 / 3.0, "float32")
+    return dict(
+        shape=f"batch={batch} c={c}",
+        ms=time_ms(lambda: chol_small.cholesky_small_batched(Dj)),
+        plain_ms=time_ms(lambda: chol_small.cholesky_small_batched_plain(Dj),
+                         reps=2, rounds=3),
+        library_ms=time_ms(lambda: torch.linalg.cholesky_ex(D)),
+        bound_ms=bms, bound_by=by)
+
+
+# --------------------------------------------------------------------------
+# phase 6d: the panel bench
+# --------------------------------------------------------------------------
+
+def panel_bench(dev):
+    """spfx_torch.bench.panels.main() at its full size, its launches
+    (one warm and REPS timed calls of syrk_gemm_batched, nothing else),
+    the custom kernel's S and G against the einsum strategy (1e-5 of each
+    output's largest entry, f32: 32-term dot products summed in other
+    orders), and syrk_gemm_batched's times (kernel, plain, library: a
+    torch.bmm pair) and bound at that size. Returns (GFLOP/s by strategy,
+    launches, timing row, largest |kernel - einsum|)."""
+    import torch
+    from spfx_torch.bench import panels
+    from spfx_torch.chol.factorize import matmul_precision
+    from spfx_torch.kernels import _cuda, syrk_gemm
+    _cuda.reset_launch_counts()
+    gflops = panels.main()
+    launches = _cuda.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["syrk_gemm_batched"] = 1 + panels.REPS
+    if launches != want:
+        fail(f"panel bench: launches {launches}, expected {want}")
+    log("[panels] GFLOP/s " + json.dumps(gflops))
+    A, B = panels.inputs(device=dev)
+    batch, n, k = A.shape
+    m = B.shape[1]
+    with matmul_precision("highest"):
+        err = 0.0
+        for got, ref in zip(panels.strategy_custom(A, B),
+                            panels.strategy_batched(A, B)):
+            e = max_diff(got, ref)
+            if not e <= 1e-5 * float(ref.abs().max()):
+                fail(f"panel bench: the custom kernel is {e:.3e} from the "
+                     "einsum strategy")
+            err = max(err, e)
+        At = A.transpose(1, 2)
+        bms, by = bound(4.0 * batch * (n * k + m * k + n * n + m * n),
+                        2.0 * batch * (n * n * k + m * n * k), "float32")
+        row = dict(
+            shape=f"batch={batch} n={n} m={m} k={k}",
+            ms=time_ms(lambda: syrk_gemm.syrk_gemm_batched(A, B), reps=3,
+                       rounds=3),
+            plain_ms=time_ms(lambda: syrk_gemm.syrk_gemm_batched_plain(A, B),
+                             reps=3, rounds=3),
+            library_ms=time_ms(lambda: (torch.bmm(A, At), torch.bmm(B, At)),
+                               reps=3, rounds=3),
+            bound_ms=bms, bound_by=by)
+    torch.cuda.synchronize()
+    return gflops, launches, row, err
+
+
+# --------------------------------------------------------------------------
 # phases 4-6: the main path
 # --------------------------------------------------------------------------
 
@@ -752,18 +1017,18 @@ def is_lu(ctx) -> bool:
 
 def predicted_launches(ctx) -> dict:
     """Launches of one factorization under the SPFX_PANEL_KERNEL mode set
-    now: one window_gather2 per UT step and factor array; per PC step
-    either one launch of its route's whole-panel kernel or, on the
-    blocked route, one diagonal-block kernel per 32 columns (getrf_inv for
-    LU, potrf_inv for Cholesky)."""
+    now: one window_gather2 and one extend_add_rows per UT step and factor
+    array; per PC step either one launch of its route's whole-panel kernel
+    or, on the blocked route, one diagonal-block kernel per 32 columns
+    (getrf_inv for LU, potrf_inv for Cholesky)."""
     from spfx_torch.kernels import _cuda, route
     plan = ctx.plan
     lu = is_lu(ctx)
     mode = route.panel_mode()
     item = 4 if ctx.config.dtype == "float32" else 8
     want = dict.fromkeys(_cuda.launch_counts(), 0)
-    want["window_gather2"] = sum(len(lp.updates)
-                                 for lp in plan.levels) * (2 if lu else 1)
+    want["window_gather2"] = want["extend_add_rows"] = sum(
+        len(lp.updates) for lp in plan.levels) * (2 if lu else 1)
     for lp in plan.levels:
         for pb in lp.panels:
             r = route.route_panel(pb.cp, pb.rbp, len(pb.widths), item, lu,
@@ -1013,6 +1278,38 @@ def main(argv) -> int:
         del calls
         torch.cuda.empty_cache()
 
+    # 3d. extend_add_rows at every UT step of the 48^3 Cholesky plan
+    ecalls = extend_add_calls(ctx.plan, dev)
+    for dtype in ("float32", "float64"):
+        t0 = time.perf_counter()
+        L = torch.randn(ctx.plan.storage, generator=gen, device=dev,
+                        dtype=getattr(torch, dtype))
+        errs[("extend_add_rows", dtype)] = check_extend_add(L, ecalls, dtype,
+                                                            gen)
+        log(f"[kernels] {dtype}: {len(ecalls)} extend_add_rows calls, max "
+            f"abs err {errs[('extend_add_rows', dtype)]:.3e}; one slab row "
+            "and all-dropped calls exact "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if dtype == "float32":
+            rows["extend_add_rows"] = extend_add_rows_row(L, ecalls, dtype,
+                                                          gen)
+            log("[kernels] f32 timing extend_add_rows "
+                + json.dumps(rows["extend_add_rows"]))
+        del L
+    del ecalls
+    torch.cuda.empty_cache()
+
+    # 3e. cholesky_small_batched (no path runs it)
+    t0 = time.perf_counter()
+    cerr = check_chol_small(dev, gen)
+    errs.update({("cholesky_small_batched", d): v for d, v in cerr.items()})
+    rows["cholesky_small_batched"] = chol_small_row(dev, gen)
+    log(f"[kernels] cholesky_small_batched max abs err "
+        + ", ".join(f"{d} {v:.3e}" for d, v in cerr.items())
+        + f" ({time.perf_counter() - t0:.1f} s); f32 timing "
+        + json.dumps(rows["cholesky_small_batched"]))
+    torch.cuda.empty_cache()
+
     # 4. Cholesky main path, 48^3 f32 with the default Config; 4c. the same
     # under SPFX_PANEL_KERNEL=lanes, then wide
     paths = {}
@@ -1078,9 +1375,21 @@ def main(argv) -> int:
                 fail(f"card and CPU factors ({name}{tag}) differ by "
                      f"{rel:.3e}")
 
+    # 6d. the panel bench, its launches a path of its own
+    t0 = time.perf_counter()
+    _, paths["panels"], rows["syrk_gemm_batched"], errs[
+        ("syrk_gemm_batched", "float32")] = panel_bench(dev)
+    log(f"[panels] custom kernel vs einsum max abs err "
+        f"{errs[('syrk_gemm_batched', 'float32')]:.3e}, launches "
+        f"{paths['panels']['syrk_gemm_batched']} "
+        f"({time.perf_counter() - t0:.1f} s); f32 timing "
+        + json.dumps(rows["syrk_gemm_batched"]))
+    torch.cuda.empty_cache()
+
     # 7. the kernels line: launches from the kernel's own path (window
-    # gathers and potrf_inv: Cholesky; getrf_inv: LU; each whole-panel
-    # kernel: its kind under its route), every path listed
+    # gathers, extend_add_rows and potrf_inv: Cholesky; getrf_inv: LU; each
+    # whole-panel kernel: its kind under its route; syrk_gemm_batched: the
+    # panel bench), every path listed
     cu = "spfx_torch/kernels/csrc/"
     pb = "spfx/kernels/pallas_blocks.py:"
     info = {  # name: (source, TPU kernel, own path)
@@ -1094,6 +1403,10 @@ def main(argv) -> int:
         "chol_panel_wide": (cu + "panel_wide.cu", pb + "807",
                             "cholesky_wide"),
         "lu_panel_wide": (cu + "panel_wide.cu", pb + "969", "lu_wide"),
+        "extend_add_rows": (cu + "extend_add.cu", pb + "611", "cholesky"),
+        "syrk_gemm_batched": (cu + "syrk_gemm.cu", pb + "200", "panels"),
+        "cholesky_small_batched": (cu + "chol_small.cu", pb + "1195",
+                                   "cholesky"),
     }
     kernels = []
     for name, (source, replaces, own) in info.items():

@@ -99,7 +99,11 @@ def matmul_precision(name: str):
 
 def check_windows(plan: FactorPlan) -> None:
     """Every live aligned-down gather superwindow of every UT bucket ends
-    inside the flat storage: the gather kernels never clip."""
+    inside the flat storage: the gather kernels never clip. And every
+    extend-add stays in its slab: the slab ends inside the storage, the
+    row table has one entry per row of the step's E, B * (mp + ALIGN/kp),
+    and every live entry is a row of the slab (the kernel traps on one
+    that is not)."""
     for lp in plan.levels:
         for ub in lp.updates:
             ext = ALIGN // ub.kp
@@ -111,6 +115,15 @@ def check_windows(plan: FactorPlan) -> None:
                         > plan.storage:
                     raise ValueError("plan has a gather superwindow past "
                                      "the end of storage")
+            if int(ub.slab_lo[0]) + ub.slab_rows * ub.csp > plan.storage:
+                raise ValueError("plan has an extend-add slab past the end "
+                                 "of storage")
+            if ub.tgt_lrow.size != len(ub.kw) * (ub.mp + ext):
+                raise ValueError(
+                    f"plan has an extend-add row table of {ub.tgt_lrow.size}"
+                    f" entries for {len(ub.kw) * (ub.mp + ext)} update rows")
+            if ub.tgt_lrow.size and int(ub.tgt_lrow.max()) >= ub.slab_rows:
+                raise ValueError("plan has an extend-add row past its slab")
 
 
 def update_precision(config: Config):
@@ -300,12 +313,12 @@ class Cholesky:
                 # factor its panels
                 with upd_ctx():
                     for ub in lp.updates:
-                        (kw, mrows, rstart, src_start, head_start, _,
-                         ea_idx, ea_rbase, ea_rel, tgt_cpos) = ub.to(dev)
+                        (kw, mrows, rstart, src_start, head_start,
+                         *_, tgt_cpos) = ub.to(dev)
                         blocks.apply_updates_sym_t(
                             L, kw, mrows, rstart, src_start, head_start,
-                            int(ub.slab_lo[0]), ea_idx, ea_rbase, ea_rel,
-                            tgt_cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
+                            int(ub.slab_lo[0]), ub.rows_to(dev), tgt_cpos,
+                            mp=ub.mp, kp=ub.kp, csp=ub.csp,
                             srows=ub.slab_rows)
                 for pb in lp.panels:
                     widths, nbelow, _ = pb.to_u(dev)

@@ -59,6 +59,17 @@ _SIGNATURES = {
                    for kind, sig in (("chol", _PANEL_CHOL),
                                      ("lu", _PANEL_LU))
                    for t in ("f32", "f64")},
+    # (slab, Rs, csp, rows, RE, E, stream)
+    "extend_add": {f"spfx_extend_add_rows_{t}": [_vp, _c_ll, _c_int, _vp,
+                                                 _c_ll, _vp, _vp]
+                   for t in ("f32", "f64")},
+    # (A, B, S, G, batch, n, m, k, stream)
+    "syrk_gemm": {f"spfx_syrk_gemm_batched_{t}": [_vp] * 4 + [_c_int] * 4
+                  + [_vp] for t in ("f32", "f64")},
+    # (D, L, batch, c, stream)
+    "chol_small": {f"spfx_cholesky_small_batched_{t}": [_vp, _vp, _c_int,
+                                                        _c_int, _vp]
+                   for t in ("f32", "f64")},
 }
 
 _libs: dict = {}
@@ -66,7 +77,8 @@ build_log: dict = {}          # source name -> nvcc's output (ptxas -v)
 
 _launches = {"window_gather2": 0, "window_gather": 0, "potrf_inv": 0,
              "getrf_inv": 0, "chol_panel_lanes": 0, "lu_panel_lanes": 0,
-             "chol_panel_wide": 0, "lu_panel_wide": 0}
+             "chol_panel_wide": 0, "lu_panel_wide": 0, "extend_add_rows": 0,
+             "syrk_gemm_batched": 0, "cholesky_small_batched": 0}
 
 
 def count(name: str) -> None:

@@ -9,7 +9,8 @@ view of the flat tensor and is updated where it lies).
 - assembly: the permuted lower-triangle values scattered into fresh storage;
 - UT update step: two superwindow gathers (``gather.window_gather2``), the
   masked product C = G H^T, C's columns placed at their target columns, and
-  the extend-add of the valid rows into the target slab;
+  the extend-add of the valid rows into the target slab
+  (``extend_add.extend_add_rows`` over the bucket's flat ``tgt_lrow``);
 - PC panel step: the routers ``_chol_deltas_blocks`` and
   ``_lu_deltas_blocks`` pick a kernel family per bucket with
   ``route.route_panel`` under the ``SPFX_PANEL_KERNEL`` mode the engine
@@ -28,8 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from spfx_torch.kernels import (gather, panel, panel_lanes, panel_wide,
-                                route)
+from spfx_torch.kernels import (extend_add, gather, panel, panel_lanes,
+                                panel_wide, route)
 from spfx_torch.kernels.panel_lanes import to_lanes, to_task_major
 from spfx_torch.plan.schedule import ALIGN
 
@@ -181,31 +182,25 @@ def _place_cols(C, tgt_cpos, csp: int):
     return E.scatter_add_(2, col[:, None, :].expand(B, rows, np_h), C)
 
 
-def extend_add_slab(L, slab_lo: int, ea_idx, ea_rbase, ea_rel, E,
-                    srows: int, csp: int):
+def extend_add_slab(L, slab_lo: int, tgt_rows, E, srows: int, csp: int):
     """Subtract the valid update rows of E (B, rows, csp) into the slab
-    L[slab_lo : slab_lo + srows*csp] viewed as (srows, csp), IN PLACE: the
-    plan's group tables pair E row ea_idx[g*EA_G + i] with slab row
-    ea_rbase[g] + ea_rel[g, i] (ea_rel < 0 pads a group). Several E rows
-    may target one slab row; on the card their sum order is not fixed."""
+    L[slab_lo : slab_lo + srows*csp] viewed as (srows, csp), IN PLACE, with
+    one ``extend_add.extend_add_rows`` launch: E row i lands on slab row
+    tgt_rows[i] (the bucket's flat ``tgt_lrow``, -1 drops the row). Several
+    E rows may target one slab row; on the card their sum order is not
+    fixed."""
     slab = L[slab_lo:slab_lo + srows * csp].view(srows, csp)
-    rel = ea_rel.reshape(-1)
-    live = rel >= 0
-    rows = torch.where(live, ea_rbase.repeat_interleave(ea_rel.shape[1])
-                       + rel, 0)
-    Ec = E.reshape(-1, E.shape[-1]).index_select(0, ea_idx)
-    slab.index_add_(0, rows, Ec * live[:, None].to(E.dtype), alpha=-1)
+    extend_add.extend_add_rows(slab, tgt_rows, E.reshape(-1, csp))
     return L
 
 
 def apply_updates_sym_t(L, kw, mrows, rstart, src_start, head_start,
-                        slab_lo: int, ea_idx, ea_rbase, ea_rel, tgt_cpos,
-                        mp: int, kp: int, csp: int, srows: int):
+                        slab_lo: int, tgt_rows, tgt_cpos, mp: int, kp: int,
+                        csp: int, srows: int):
     """One UT update step, in place: update rows, then extend-add."""
     E = update_rows_sym_t(L, kw, mrows, rstart, src_start, head_start,
                           tgt_cpos, mp, kp, csp)
-    return extend_add_slab(L, slab_lo, ea_idx, ea_rbase, ea_rel, E,
-                           srows, csp)
+    return extend_add_slab(L, slab_lo, tgt_rows, E, srows, csp)
 
 
 # --------------------------------------------------------------------------
@@ -232,13 +227,14 @@ def update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
 
 
 def apply_updates_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
-                       slab_lo: int, ea_idx, ea_rbase, ea_rel, tgt_cpos,
-                       mp: int, kp: int, csp: int, srows: int):
-    """One LU UT update step, in place on Lx and Ux."""
+                       slab_lo: int, tgt_rows, tgt_cpos, mp: int, kp: int,
+                       csp: int, srows: int):
+    """One LU UT update step, in place on Lx and Ux (one extend-add launch
+    per array)."""
     EL, EU = update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start,
                               head_start, tgt_cpos, mp, kp, csp)
-    extend_add_slab(Lx, slab_lo, ea_idx, ea_rbase, ea_rel, EL, srows, csp)
-    extend_add_slab(Ux, slab_lo, ea_idx, ea_rbase, ea_rel, EU, srows, csp)
+    extend_add_slab(Lx, slab_lo, tgt_rows, EL, srows, csp)
+    extend_add_slab(Ux, slab_lo, tgt_rows, EU, srows, csp)
     return Lx, Ux
 
 

@@ -183,13 +183,13 @@ class LU:
                 # factor its panels
                 with upd_ctx():
                     for ub in lp.updates:
-                        (kw, mrows, rstart, src_start, head_start, _,
-                         ea_idx, ea_rbase, ea_rel, tgt_cpos) = ub.to(dev)
+                        (kw, mrows, rstart, src_start, head_start,
+                         *_, tgt_cpos) = ub.to(dev)
                         blocks.apply_updates_lu_t(
                             Lx, Ux, kw, mrows, rstart, src_start,
-                            head_start, int(ub.slab_lo[0]), ea_idx,
-                            ea_rbase, ea_rel, tgt_cpos, mp=ub.mp, kp=ub.kp,
-                            csp=ub.csp, srows=ub.slab_rows)
+                            head_start, int(ub.slab_lo[0]), ub.rows_to(dev),
+                            tgt_cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
+                            srows=ub.slab_rows)
                 for pb in lp.panels:
                     widths, nbelow, _ = pb.to_u(dev)
                     blocks.factor_panels_lu_u(

@@ -220,6 +220,7 @@ class UpdateBucketC:
     #                             gather DMA aligns starts down; see
     #                             _make_update_bucket_t)
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
+    _dev_rows: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def to(self, device):
         arrs = (self.kw, self.mrows, self.src_start, self.slab_lo,
@@ -228,6 +229,13 @@ class UpdateBucketC:
             arrs = arrs[:2] + (self.rstart, self.src_start,
                                self.head_start) + arrs[3:]
         return _to_device(self._dev, device, arrs)
+
+    def rows_to(self, device):
+        """tgt_lrow flattened to (B * rows,) int32 on ``device``: the slab
+        row of every row of the step's E, -1 where the row is dropped (the
+        extend-add kernel's row table)."""
+        return _to_device(self._dev_rows, device, (np.ascontiguousarray(
+            self.tgt_lrow.reshape(-1), dtype=np.int32),))[0]
 
     @property
     def tgt_row_start(self) -> np.ndarray:

@@ -158,7 +158,9 @@ def test_import_leaves_no_jax():
     code = ("import sys, spfx_torch, spfx_torch.interop, "
             "spfx_torch.lu.factorize, spfx_torch.lu.pivot, "
             "spfx_torch.kernels.route, spfx_torch.kernels.panel_lanes, "
-            "spfx_torch.kernels.panel_wide\n"
+            "spfx_torch.kernels.panel_wide, spfx_torch.kernels.extend_add, "
+            "spfx_torch.kernels.syrk_gemm, spfx_torch.kernels.chol_small, "
+            "spfx_torch.bench.panels\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spfx')]\n"
             "print(','.join(bad))\n")
@@ -181,7 +183,9 @@ def test_port_sources_import_no_jax():
     srcs = list(_port_sources())
     assert len(srcs) > 10
     for f in ("lu/factorize.py", "lu/pivot.py", "kernels/route.py",
-              "kernels/panel_lanes.py", "kernels/panel_wide.py"):
+              "kernels/panel_lanes.py", "kernels/panel_wide.py",
+              "kernels/extend_add.py", "kernels/syrk_gemm.py",
+              "kernels/chol_small.py", "bench/panels.py"):
         assert os.path.join(ROOT, "spfx_torch", f) in srcs
     for path in srcs:
         tree = ast.parse(open(path).read(), path)

@@ -251,34 +251,43 @@ def test_update_rows_matches_jax(real_plan, dtype):
                                atol=tol * scale)
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_ut_step_matches_jax(real_plan, dtype):
-    """update rows + extend-add, in place, vs apply_updates_sym_t.
-    f32 tolerance: the JAX extend-add sums a group's rows that share a
-    slab row before subtracting; the port subtracts them one by one."""
+@pytest.mark.parametrize("dtype,steps", [
+    ("float32", "largest"), ("float64", "largest"),
+    ("float32", "every"), ("float64", "every")],
+    ids=["float32", "float64", "float32-every", "float64-every"])
+def test_ut_step_matches_jax(real_plan, dtype, steps):
+    """update rows + extend-add, in place, vs apply_updates_sym_t: the
+    largest UT step, or every UT step of the plan in turn. Each step
+    writes only its slab. f32 tolerance: the JAX extend-add sums a group's
+    rows that share a slab row before subtracting; the port subtracts them
+    one by one."""
     plan, flat, tplan = real_plan
     npd, _ = DTYPES[dtype]
-    ub, tub = _largest_ut(plan, tplan)
-    Lj = jblocks.apply_updates_sym_t(
-        jnp.asarray(flat.astype(npd)), *ub.dev(), mp=ub.mp, kp=ub.kp,
-        csp=ub.csp, srows=ub.slab_rows)
-    (kw, mrows, rstart, src, head, _, ea_idx, ea_rbase, ea_rel,
-     cpos) = tub.to("cpu")
+    pairs = ([_largest_ut(plan, tplan)] if steps == "largest"
+             else list(zip(_ut_buckets(plan), _ut_buckets(tplan))))
+    Lj = jnp.asarray(flat.astype(npd))
     Lt = torch.from_numpy(flat.astype(npd))
-    out = blocks.apply_updates_sym_t(
-        Lt, kw, mrows, rstart, src, head, int(ub.slab_lo[0]), ea_idx,
-        ea_rbase, ea_rel, cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
-        srows=ub.slab_rows)
-    assert out is Lt                                 # in place
+    for ub, tub in pairs:
+        Lj = jblocks.apply_updates_sym_t(
+            Lj, *ub.dev(), mp=ub.mp, kp=ub.kp, csp=ub.csp,
+            srows=ub.slab_rows)
+        kw, mrows, rstart, src, head, *_, cpos = tub.to("cpu")
+        before = Lt.clone()
+        out = blocks.apply_updates_sym_t(
+            Lt, kw, mrows, rstart, src, head, int(ub.slab_lo[0]),
+            tub.rows_to("cpu"), cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
+            srows=ub.slab_rows)
+        assert out is Lt                             # in place
+        lo = int(ub.slab_lo[0])
+        hi = lo + ub.slab_rows * ub.csp
+        assert torch.equal(Lt[:lo], before[:lo])
+        assert torch.equal(Lt[hi:], before[hi:])
     Lj = np.asarray(Lj)
     changed = Lj != flat.astype(npd)
     assert changed.sum() > 0
     tol = 1e-12 if dtype == "float64" else 1e-5
     np.testing.assert_allclose(Lt.numpy(), Lj, rtol=0,
                                atol=tol * np.abs(Lj).max())
-    lo, hi = int(ub.slab_lo[0]), int(ub.slab_lo[0]) + ub.slab_rows * ub.csp
-    np.testing.assert_array_equal(Lt.numpy()[:lo], flat.astype(npd)[:lo])
-    np.testing.assert_array_equal(Lt.numpy()[hi:], flat.astype(npd)[hi:])
 
 
 def test_assemble_matches_jax(real_plan):

@@ -189,36 +189,46 @@ def _largest_ut(plan, tplan):
     return ubs[i], tubs[i]
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_lu_ut_step_matches_jax(lu_plan, dtype):
+@pytest.mark.parametrize("dtype,steps", [
+    ("float32", "largest"), ("float64", "largest"),
+    ("float32", "every"), ("float64", "every")],
+    ids=["float32", "float64", "float32-every", "float64-every"])
+def test_lu_ut_step_matches_jax(lu_plan, dtype, steps):
     """update rows + extend-add on both arrays, in place, vs
-    apply_updates_lu_t. f32 tolerance: the JAX extend-add sums a group's
-    rows that share a slab row before subtracting; the port subtracts
-    them one by one."""
+    apply_updates_lu_t: the largest UT step, or every UT step of the plan
+    in turn. Each step writes only its slab. f32 tolerance: the JAX
+    extend-add sums a group's rows that share a slab row before
+    subtracting; the port subtracts them one by one."""
     plan, tplan, flat = lu_plan
     npd, _ = DTYPES[dtype]
     fl, fu = flat[0].astype(npd), flat[1].astype(npd)
-    ub, tub = _largest_ut(plan, tplan)
-    Lj, Uj = jblocks.apply_updates_lu_t(
-        jnp.asarray(fl), jnp.asarray(fu), *ub.dev(), mp=ub.mp, kp=ub.kp,
-        csp=ub.csp, srows=ub.slab_rows)
-    (kw, mrows, rstart, src, head, _, ea_idx, ea_rbase, ea_rel,
-     cpos) = tub.to("cpu")
+    pairs = ([_largest_ut(plan, tplan)] if steps == "largest" else list(zip(
+        [ub for lp in plan.levels for ub in lp.updates],
+        [ub for lp in tplan.levels for ub in lp.updates])))
+    Lj, Uj = jnp.asarray(fl), jnp.asarray(fu)
     Lt, Ut = torch.from_numpy(fl.copy()), torch.from_numpy(fu.copy())
-    out = blocks.apply_updates_lu_t(
-        Lt, Ut, kw, mrows, rstart, src, head, int(ub.slab_lo[0]), ea_idx,
-        ea_rbase, ea_rel, cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
-        srows=ub.slab_rows)
-    assert out[0] is Lt and out[1] is Ut                 # in place
+    for ub, tub in pairs:
+        Lj, Uj = jblocks.apply_updates_lu_t(
+            Lj, Uj, *ub.dev(), mp=ub.mp, kp=ub.kp, csp=ub.csp,
+            srows=ub.slab_rows)
+        kw, mrows, rstart, src, head, *_, cpos = tub.to("cpu")
+        before = Lt.clone(), Ut.clone()
+        out = blocks.apply_updates_lu_t(
+            Lt, Ut, kw, mrows, rstart, src, head, int(ub.slab_lo[0]),
+            tub.rows_to("cpu"), cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
+            srows=ub.slab_rows)
+        assert out[0] is Lt and out[1] is Ut             # in place
+        lo = int(ub.slab_lo[0])
+        hi = lo + ub.slab_rows * ub.csp
+        for got, prev in zip(out, before):
+            assert torch.equal(got[:lo], prev[:lo])
+            assert torch.equal(got[hi:], prev[hi:])
     tol = 1e-12 if dtype == "float64" else 1e-5
-    lo, hi = int(ub.slab_lo[0]), int(ub.slab_lo[0]) + ub.slab_rows * ub.csp
-    for ref, got, before in ((Lj, Lt, fl), (Uj, Ut, fu)):
+    for ref, got, start in ((Lj, Lt, fl), (Uj, Ut, fu)):
         ref = np.asarray(ref)
-        assert (ref != before).sum() > 0
+        assert (ref != start).sum() > 0
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                    atol=tol * np.abs(ref).max())
-        np.testing.assert_array_equal(got.numpy()[:lo], before[:lo])
-        np.testing.assert_array_equal(got.numpy()[hi:], before[hi:])
 
 
 def test_factor_panels_lu_in_place(lu_plan):
