@@ -21,9 +21,11 @@ non-zero):
    every PC step of the 48^3 plans (395 calls each; the panels taken from
    the assembled arrays), in f32 and f64, against their plain versions,
    with L11 L11^T = D, L21 L11^T = B (Cholesky) and L11 U11 = D,
-   L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part; then
+   L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part, and
+   chol_panel_deltas_lanes at five seeded edge calls of its blocking; then
    times of kernel, plain version and library calls at the largest call
-   by work, and each kernel's bound;
+   by work, each kernel's bound, and the whole path's calls in one graph
+   (for Cholesky the library calls' path too);
 3d. extend_add_rows at every UT step of the 48^3 Cholesky plan (1,126
    calls: each step's row table and slab view of a seeded flat array, E
    seeded in the step's shape), in f32 and f64, against the plain version;
@@ -458,20 +460,51 @@ def panel_residuals(w, nb, cp: int, rbp: int, blks, outs, lu: bool):
     return [(what, mx(r), max(s, 1.0)) for what, r, s in res]
 
 
-def check_panels(calls, dtype: str, lu: bool):
+def chol_lanes_edge_calls(dev, gen):
+    """Seeded Cholesky calls, task-major as ``panel_calls`` gives them, at
+    the edges of the lanes kernel's 32-column blocks and 32-row tiles:
+    (cp, rbp, B) = (256, 2561, 1) with w = 255, nb = 2500 (a masked last
+    block, rbp one past a multiple of 32); (256, 0, 2) (no below phase);
+    (160, 33, 1) (one row in the last tile); (96, 70, 2) with a dead task
+    (w = 0, nb = 0) beside a full one; (70, 45, 3), a width that is no
+    multiple of 32 (a padded workspace row) and three tasks. SPD windows
+    X X^T + cp I with junk above the diagonal, as the CPU tests make
+    them."""
+    import torch
+    out = []
+    for cp, rbp, ws, nbs in ((256, 2561, [255], [2500]),
+                             (256, 0, [256, 131], [0, 0]),
+                             (160, 33, [160], [33]),
+                             (96, 70, [0, 96], [0, 70]),
+                             (70, 45, [70, 33, 1], [45, 0, 44])):
+        B = len(ws)
+        f64 = dict(device=dev, dtype=torch.float64)
+        X = torch.randn((B, cp, cp), generator=gen, **f64)
+        D = X @ X.mT + cp * torch.eye(cp, **f64)
+        D = torch.tril(D) + torch.triu(torch.full_like(D, 7.0), 1)
+        Bm = torch.randn((B, rbp, cp), generator=gen, **f64)
+        i32 = dict(device=dev, dtype=torch.int32)
+        out.append((torch.tensor(ws, **i32), torch.tensor(nbs, **i32), cp,
+                    rbp, [D, Bm]))
+    return out
+
+
+def check_panels(calls, dtype: str, lu: bool, families=("lanes", "wide")):
     """Every call of both families of one kind against the plain version,
     and the reconstructions of ``panel_residuals``. Tolerances: kernel vs
     plain f32 1e-4, f64 1e-12, relative to the largest entry of the plain
     outputs (the same recurrences, sums taken in other orders, blocked by
     32 columns in the wide kernels); reconstructions f32 1e-6, f64 1e-14,
     relative to cp times the product of the factors' largest entries (a
-    w-term sum's rounding). Returns {kernel name: largest |kernel - plain|}."""
+    w-term sum's rounding). Returns {kernel name: largest |kernel - plain|}
+    over the ``families`` checked."""
     import torch
     td = getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 1e-12
     rtol = 1e-6 if dtype == "float32" else 1e-14
     kind = "lu" if lu else "chol"
     plain, fams = panel_fns(lu)
+    fams = {f: fams[f] for f in families}
     worst = {f"{kind}_panel_{f}": 0.0 for f in fams}
     for w, nb, cp, rbp, blks in calls:
         blks = [b.to(td) for b in blks]
@@ -495,6 +528,31 @@ def check_panels(calls, dtype: str, lu: bool):
     return worst
 
 
+def chol_library(w, nb, cp: int, rbp: int, Draw, Braw):
+    """The Cholesky library yardstick of one call, ``cholesky_ex`` +
+    ``solve_triangular``, as a closure over its masked inputs: the live
+    block symmetrized from its lower triangle, the identity on the
+    padding, the live below entries."""
+    import torch
+    i = torch.arange(cp, device=w.device)
+    cm = i[None, :] < w[:, None]
+    live = cm[:, :, None] & cm[:, None, :]
+    bm = (torch.arange(rbp, device=w.device)[None, :] < nb[:, None]
+          )[:, :, None] & cm[:, None, :]
+    Dl = torch.tril(torch.where(live, Draw, 0))
+    Dm = (Dl + torch.tril(Dl, -1).transpose(1, 2)
+          + torch.diag_embed((~cm).to(Draw.dtype)))
+    Bmm = torch.where(bm, Braw, 0)
+
+    def library():
+        Lc, _ = torch.linalg.cholesky_ex(Dm)
+        if rbp:
+            return torch.linalg.solve_triangular(Lc.mT, Bmm, upper=True,
+                                                 left=False)
+        return Lc
+    return library
+
+
 def panel_rows(calls, dtype: str, lu: bool):
     """Times (kernel, plain, library) and bound of both families of one kind
     at the path's largest call by work, and of all of the path's calls in
@@ -510,14 +568,14 @@ def panel_rows(calls, dtype: str, lu: bool):
         c[0], c[1], c[2], c[3], item)[1])
     blks = [b.to(td) for b in blks]
     bms, by = bound(*work_of(w, nb, cp, rbp, item), dtype)
-    # the library yardstick on the masked blocks: identity on the padding
-    i = torch.arange(cp, device=w.device)
-    cm = i[None, :] < w[:, None]
-    live = cm[:, :, None] & cm[:, None, :]
-    pad = torch.diag_embed((~cm).to(td))
-    bm = (torch.arange(rbp, device=w.device)[None, :] < nb[:, None]
-          )[:, :, None] & cm[:, None, :]
     if lu:
+        # the library yardstick on the masked blocks: identity on the padding
+        i = torch.arange(cp, device=w.device)
+        cm = i[None, :] < w[:, None]
+        live = cm[:, :, None] & cm[:, None, :]
+        pad = torch.diag_embed((~cm).to(td))
+        bm = (torch.arange(rbp, device=w.device)[None, :] < nb[:, None]
+              )[:, :, None] & cm[:, None, :]
         DL, DU, BL, BU = blks
         low = i[:, None] >= i[None, :]
         Dm = (torch.where(live & low, DL, 0)
@@ -534,16 +592,7 @@ def panel_rows(calls, dtype: str, lu: bool):
         # lu_factor_ex(pivot=False) cannot be captured in a CUDA graph
         library_ms = time_ms(library, graph=False)
     else:
-        Draw, Braw = blks
-        Dl = torch.tril(torch.where(live, Draw, 0))
-        Dm = Dl + torch.tril(Dl, -1).transpose(1, 2) + pad
-        Bmm = torch.where(bm, Braw, 0)
-
-        def library():
-            Lc, _ = torch.linalg.cholesky_ex(Dm)
-            return torch.linalg.solve_triangular(Lc.mT, Bmm, upper=True,
-                                                 left=False)
-        library_ms = time_ms(library)
+        library_ms = time_ms(chol_library(w, nb, cp, rbp, *blks))
     plain_ms = time_ms(lambda: plain(w, nb, *blks, cp, rbp), reps=2,
                        rounds=3)
     rows = {}
@@ -552,6 +601,15 @@ def panel_rows(calls, dtype: str, lu: bool):
     work = [work_of(c[0], c[1], c[2], c[3], item) for c in pcd]
     path_bound = bound(sum(b for b, _ in work), sum(o for _, o in work),
                        dtype)[0]
+    library_path_ms = None
+    if not lu:
+        libs = [chol_library(*c[:4], *c[4]) for c in pcd]
+
+        def library_path():
+            for lib in libs:
+                lib()
+        library_path_ms = time_ms(library_path, reps=1, rounds=3)
+        del libs
     for fam, fn in fams.items():
         if fam == "lanes":
             ins = [to_lanes(b) for b in blks]
@@ -569,7 +627,7 @@ def panel_rows(calls, dtype: str, lu: bool):
             ms=time_ms(lambda fn=fn, ins=ins: fn(w, nb, *ins, cp, rbp)),
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
             bound_by=by, path_ms=time_ms(path, reps=1, rounds=3),
-            path_bound_ms=path_bound)
+            path_bound_ms=path_bound, library_path_ms=library_path_ms)
         del pins
     return rows
 
@@ -1272,6 +1330,15 @@ def main(argv) -> int:
                 f"{kind}_panel_lanes and {kind}_panel_wide, max abs err "
                 + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
                 + f" ({time.perf_counter() - t0:.1f} s)")
+        if not lu:
+            edge = chol_lanes_edge_calls(dev, gen)
+            for dtype in ("float32", "float64"):
+                worst = check_panels(edge, dtype, lu, families=("lanes",))
+                log(f"[kernels] {dtype}: {len(edge)} seeded edge calls of "
+                    "chol_panel_lanes, (cp, rbp, B) = "
+                    + ", ".join(str((c[2], c[3], len(c[0]))) for c in edge)
+                    + f", max abs err {worst['chol_panel_lanes']:.3e}")
+            del edge
         prow = panel_rows(calls, "float32", lu)
         log(f"[kernels] f32 timing {kind} panels " + json.dumps(prow))
         rows.update(prow)
@@ -1419,7 +1486,8 @@ def main(argv) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "path_ms": r.get("path_ms"),
-            "path_bound_ms": r.get("path_bound_ms")})
+            "path_bound_ms": r.get("path_bound_ms"),
+            "library_path_ms": r.get("library_path_ms")})
     for k in kernels:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

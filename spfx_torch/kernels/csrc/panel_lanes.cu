@@ -26,21 +26,52 @@
 // scratch for the later row-block steps: a TPU grid runs in order. Thread
 // blocks on the card run in no order, so each call is TWO launches on the
 // caller's stream: a diagonal phase (one thread block per task) that writes
-// the diagonal deltas and the factor into a workspace the wrapper allocated,
-// then a below phase (one thread per task and below row) that reads it.
-// The wrapper counts the pair as one launch of the kernel.
+// the factor into a workspace the wrapper allocated, then a phase that
+// reads it. The wrapper counts the pair as one launch of the kernel.
 //
 // What bounds it on the H100: at the path's heaviest call (cp 256, rbp
 // 2560, B 1) about 173 MFLOP against 5.6 MB in f32 (2.5 us at 67 TFLOP/s),
 // so operations; nearly all of them are the below solve (rbp w^2), not the
-// w^3/3 of the factorization. What stands between the kernel and that
-// bound is dependence, not bytes:
+// w^3/3 of the factorization. The TPU kernel's column recurrences suit its
+// lanes when B >= 128; at B = 1 on the card they are a chain of w
+// dependent steps on one SM. What each design does about it:
+//
+// Cholesky: blocked by 32 columns over explicit inverses of the 32 x 32
+// diagonal blocks, so that everything outside a 32 x 32 factorization is a
+// product with no dependent chain. Workspace W (B, cp + 32, ldw), ldw = cp
+// rounded up to 32, row-major: rows 0..cp-1 the trailing matrix, which
+// becomes L11; rows cp..cp+31, columns 32s..32s+31 the inverse of diagonal
+// block s.
+// - diagonal phase (chol_diag_lanes, one thread block per task, 512
+//   threads in f32, 256 in f64): right-looking over the 32-column blocks,
+//   one block ahead. The panel sits transposed in shared memory; one warp
+//   factors its diagonal block in registers (potrf_inv.cu's column
+//   recurrence, the identity past w) and inverts it; all warps form the
+//   rows below it, P = A_is Linv^T, then the next panel's update
+//   A22[:, :32] -= P P[:32]^T straight into shared memory; then one warp
+//   factors the next diagonal block while the others update the rest of
+//   the trailing lower triangle. Products run in 4 x 4 register tiles from
+//   operands read four at a time. The first step reads D's lower triangle
+//   itself, so D is never copied; w/32 block steps instead of w column
+//   steps.
+// - second phase (chol_below_lanes, grid (B, ceil(rbp/32) + ceil(cp/32)),
+//   128 threads): a block stages 32 rows of B in shared memory and solves
+//   them in place, block by block: acc = B_s - X_{<s} L11[s, <s]^T (L11's
+//   32 x 32 tiles fetched from the workspace, which sits in L2, during the
+//   product before them), then X_s = acc Linv_ss^T, 2 x 4 outputs a
+//   thread; 80 thread blocks at rbp 2560, B 1. The last ceil(cp/32) blocks
+//   of a task write dd = L11 - D, 32 rows each: one thread block alone
+//   would take long over that copy.
+// A thread block alone on its SM has few warps, so its copy loops keep
+// eight loads in flight per thread (batched). No atomics, no host sync, no
+// allocation: a call captures in a CUDA graph. Plain FP32/FP64 FMAs.
+//
+// LU, the column recurrences:
 // - diagonal phase: w dependent column steps with a block-wide barrier
 //   each; thread i owns row i (threads over rows, as the TPU kernel puts
 //   rows on sublanes), the working matrix sits column-major in the
 //   workspace so that a step's reads and writes are coalesced across the
-//   threads, and column j (Cholesky) or row k of U (LU) is broadcast
-//   through shared memory;
+//   threads, and row k of U is broadcast through shared memory;
 // - below phase: every below row solves independently against the shared
 //   factor, so there are rbp*B threads; each keeps 32 columns of its
 //   solution in registers (fully unrolled), subtracts the earlier columns'
@@ -57,53 +88,398 @@ namespace {
 constexpr int kMaxCp = 256;       // widest panel the lanes family covers
 constexpr int kPanel = 32;        // columns held in registers by a row solve
 constexpr int kBelowThreads = 128;
+constexpr int kLdT = kPanel + 4;  // row of a staged tile read 4 at a time
+constexpr int kBatch = 8;         // loads in flight per thread in a copy
+constexpr int kRT = 32;           // below rows per thread block (Cholesky)
+constexpr int kRowThreads = 128;  // 16 x 8 threads, 2 x 4 outputs each
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ long long lidx(int i, int c, int b, int cp,
                                           int B) {
   return ((long long)i * cp + c) * B + b;
 }
 
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+
 __device__ __forceinline__ int clampi(int v, int hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
 // ---------------------------------------------------------------------------
-// diagonal phase; workspace W (B, cp, cp): W[b][c*cp + i] holds A[i][c]
+// Cholesky; workspace W (B, cp + 32, ldw) as in the header
 // ---------------------------------------------------------------------------
 
+// for (e = threadIdx.x; e < rows * cols; e += blockDim.x), with (r, c) the
+// row and column of e: store(e, r, c, load(e, r, c)). The loads of kBatch
+// iterations are in flight together, and (r, c) advance without a
+// division: a thread block that works alone on a task has few warps, so a
+// copy loop is bound by latency and by its instruction count.
+template <typename T, typename Load, typename Store>
+__device__ __forceinline__ void batched(int rows, int cols, Load load,
+                                        Store store) {
+  const int nt = blockDim.x, n = rows * cols;
+  const int dr = nt / cols, dc = nt % cols;
+  int r = threadIdx.x / cols, c = threadIdx.x % cols;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * nt) {
+    T v[kBatch];
+    int rs[kBatch], cs[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      rs[u] = r;
+      cs[u] = c;
+      v[u] = e0 + u * nt < n ? load(e0 + u * nt, r, c) : T(0);
+      r += dr;
+      c += dc;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (e0 + u * nt < n) store(e0 + u * nt, rs[u], cs[u], v[u]);
+  }
+}
+
+// four consecutive values at a 16-byte aligned address
+__device__ __forceinline__ void ld4(const float* p, float v[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double v[4]) {
+  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
+  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
+  v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+}
+__device__ __forceinline__ void st4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(double* p, const double v[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// Warp 0: factor the diagonal block of the staged panel Qt (Qt[c*ldq + i]
+// holds A[s+i][s+c]; pw live columns, the identity past them), overwrite
+// the block in Qt with its factor, write the factor's live part to rows s..
+// of Wb and its inverse to Lit (Lit[k*kLdT + j] = Linv[j][k]) and to rows
+// cp.. of Wb (Linv[i][j] at row cp + i, column s + j).
 template <typename T>
-__global__ void __launch_bounds__(kMaxCp)
+__device__ void factor_diag_block(T* Qt, int ldq, T* Lit, T* Dv, T* Wb,
+                                  int s, int pw, int cp, int ldw) {
+  const int lane = threadIdx.x;
+  T a[kPanel];                    // lane i: row i of the block
+#pragma unroll
+  for (int c = 0; c < kPanel; ++c)
+    a[c] = lane < pw ? (c <= lane ? Qt[c * ldq + lane] : T(0))
+                     : (c == lane ? T(1) : T(0));
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) {
+    const T piv = rsqrt_t(__shfl_sync(kFull, a[j], j));
+    if (lane >= j) a[j] *= piv;
+    if (lane == 0) Dv[j] = piv;                       // 1 / L[j][j]
+#pragma unroll
+    for (int k = j + 1; k < kPanel; ++k) {
+      const T lkj = __shfl_sync(kFull, a[j], k);      // L[k][j]
+      if (lane >= k) a[k] -= a[j] * lkj;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < kPanel; ++c) Qt[c * ldq + lane] = a[c];
+  __syncwarp();
+  // forward substitution, two partial sums; lane j: column j of Linv
+  T x[kPanel];
+#pragma unroll
+  for (int i = 0; i < kPanel; ++i) {
+    T acc0 = T(0), acc1 = T(0);
+#pragma unroll
+    for (int k = 0; k + 1 < i; k += 2) {
+      acc0 += Qt[k * ldq + i] * x[k];
+      acc1 += Qt[(k + 1) * ldq + i] * x[k + 1];
+    }
+    if (i & 1) acc0 += Qt[(i - 1) * ldq + i] * x[i - 1];
+    x[i] = ((i == lane ? T(1) : T(0)) - (acc0 + acc1)) * Dv[i];
+  }
+  if (lane < pw)
+    for (int r = 0; r < pw; ++r)
+      Wb[(long long)(s + r) * ldw + s + lane] = Qt[lane * ldq + r];
+#pragma unroll
+  for (int i = 0; i < kPanel; ++i) {
+    Lit[lane * kLdT + i] = x[i];
+    Wb[(long long)(cp + i) * ldw + s + lane] = x[i];
+  }
+}
+
+// threads of the diagonal phase: as many warps as the registers of the
+// factorization's warp allow (more warps hide more of the latency of a
+// thread block that is alone on its SM)
+template <typename T>
+constexpr int chol_diag_threads() { return sizeof(T) == 4 ? 512 : 256; }
+
+template <typename T>
+__global__ void __launch_bounds__(chol_diag_threads<T>())
 chol_diag_lanes(const int* __restrict__ widths, const T* __restrict__ D,
-                T* __restrict__ dd, T* __restrict__ W, int B, int cp) {
-  __shared__ T col[kMaxCp];
-  const int b = blockIdx.x;
-  const int i = threadIdx.x;                      // row i
+                T* __restrict__ W, int B, int cp, int ldw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldq = ldw + 4;               // staged rows, read 4 at a time
+  T* Qt = reinterpret_cast<T*>(smem);    // (32 x ldq) the panel, transposed
+  T* Pt = Qt + kPanel * ldq;             // (32 x ldw) its rows below the
+                                         // diagonal block, transposed
+  T* Lit = Pt + kPanel * ldw;            // (32 x kLdT) the block's inverse
+  T* Dv = Lit + kPanel * kLdT;           // (32) 1 / diagonal of the factor
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, nwarps = blockDim.x / 32;
+  const int ty = tid % 32 / 8, tx = tid % 8;  // a warp's 4 x 8 grid of 4 x 4
   const int w = clampi(widths[b], cp);
-  T* Wb = W + (long long)b * cp * cp;
-  if (i < cp)
-    for (int c = 0; c < cp; ++c)
-      Wb[c * cp + i] = (i < w && c <= i) ? D[lidx(i, c, b, cp, B)] : T(0);
+  T* Wb = W + (long long)b * (cp + kPanel) * ldw;
+  if (w == 0) return;
+  // the first panel, from D's lower triangle
+  const int pw0 = min(kPanel, w);
+  batched<T>(w, kPanel, [&](int, int i, int c) {
+    return c < pw0 && c <= i ? D[lidx(i, c, b, cp, B)] : T(0);
+  }, [&](int, int i, int c, T v) { Qt[c * ldq + i] = v; });
   __syncthreads();
-  // right-looking column recurrence (_potrf_lanes): scale column j by
-  // 1/sqrt(pivot), then the rank-1 update of the lower trailing part
-  for (int j = 0; j < w; ++j) {
-    if (i >= j && i < w)
-      col[i] = Wb[j * cp + i] * (T(1) / sqrt(Wb[j * cp + j]));
+  if (tid < kPanel) factor_diag_block(Qt, ldq, Lit, Dv, Wb, 0, pw0, cp, ldw);
+  __syncthreads();
+  // right-looking over 32-column blocks, one block ahead: the next panel's
+  // update goes to Qt first, so that one warp factors the next diagonal
+  // block while the others update the rest of the trailing matrix. The
+  // first step reads D's lower triangle, later ones the workspace.
+  for (int s = 0; s + kPanel < w; s += kPanel) {
+    const int t = w - s - kPanel;        // rows below the diagonal block
+    // the panel's rows below the block: P = A_is Linv^T, to Wb and, zero
+    // past row t up to a multiple of 32, to Pt; warp tiles of 16 rows x 32
+    // columns (Linv is exactly 0 above its diagonal)
+    for (int R = warp; R < (t + 31) / 32 * 2; R += nwarps) {
+      T acc[4][4] = {};
+#pragma unroll 8
+      for (int k = 0; k < kPanel; ++k) {
+        T u[4], v[4];
+        ld4(Qt + k * ldq + kPanel + 16 * R + 4 * ty, u);
+        ld4(Lit + k * kLdT + 4 * tx, v);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) acc[m][n] += u[m] * v[n];
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int i = 16 * R + 4 * ty + m;
+        if (i < t) {
+          st4(Wb + (long long)(s + kPanel + i) * ldw + s + 4 * tx, acc[m]);
+        } else {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) acc[m][n] = T(0);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const T col[4] = {acc[0][n], acc[1][n], acc[2][n], acc[3][n]};
+        st4(Pt + (4 * tx + n) * ldw + 16 * R + 4 * ty, col);
+      }
+    }
     __syncthreads();
-    if (i >= j && i < w) {
-      const T li = col[i];
-      Wb[j * cp + i] = li;
-      for (int c = j + 1; c <= i; ++c) Wb[c * cp + i] -= li * col[c];
+    // trailing update A22 -= P P^T by warp tiles of 16 rows x 32 columns,
+    // rows 16R + 4ty + m, columns 32C + 4tx + n; whole tiles (the upper
+    // triangle is never read); the old values load during the product
+    const int nR = (t + 15) / 16, nC = (t + 31) / 32;
+    T* A22 = Wb + (long long)(s + kPanel) * ldw + s + kPanel;
+    auto update = [&](int R, int C, T (&acc)[4][4]) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int i = 16 * R + 4 * ty + m;
+        if (i >= t) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) acc[m][n] = T(0);
+        } else if (s > 0) {
+          ld4(A22 + (long long)i * ldw + 32 * C + 4 * tx, acc[m]);
+        } else {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int c = 32 * C + 4 * tx + n;
+            acc[m][n] = c <= i ? D[lidx(kPanel + i, kPanel + c, b, cp, B)]
+                               : T(0);
+          }
+        }
+      }
+      T prod[4][4] = {};
+#pragma unroll 8
+      for (int k = 0; k < kPanel; ++k) {
+        T u[4], v[4];
+        ld4(Pt + k * ldw + 16 * R + 4 * ty, u);
+        ld4(Pt + k * ldw + 32 * C + 4 * tx, v);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) prod[m][n] += u[m] * v[n];
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) acc[m][n] -= prod[m][n];
+    };
+    // the next panel (C = 0) to Qt, transposed
+    for (int R = warp; R < nR; R += nwarps) {
+      T acc[4][4];
+      update(R, 0, acc);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const T col[4] = {acc[0][n], acc[1][n], acc[2][n], acc[3][n]};
+        st4(Qt + (4 * tx + n) * ldq + 16 * R + 4 * ty, col);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      factor_diag_block(Qt, ldq, Lit, Dv, Wb, s + kPanel, min(kPanel, t), cp,
+                        ldw);
+    } else {
+      for (int e = warp - 1; e < nR * (nC - 1); e += nwarps - 1) {
+        const int R = e / (nC - 1), C = 1 + e % (nC - 1);
+        if (32 * C > 16 * R + 15) continue;
+        T acc[4][4];
+        update(R, C, acc);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (16 * R + 4 * ty + m < t)
+            st4(A22 + (long long)(16 * R + 4 * ty + m) * ldw + 32 * C
+                    + 4 * tx, acc[m]);
+      }
     }
     __syncthreads();
   }
-  if (i < cp)
-    for (int c = 0; c < cp; ++c) {
-      const long long o = lidx(i, c, b, cp, B);
-      dd[o] = (i < w && c < w) ? (c <= i ? Wb[c * cp + i] : T(0)) - D[o]
-                               : T(0);
-    }
 }
+
+// Block (task b, y): for y < ceil(rbp / kRT), below rows r0 .. r0 + kRT:
+// X L11^T = B, solved in place in shared memory, 32 columns at a time; past
+// them, rows of dd = L11 - D, kRT at a time (many SMs share the copy that
+// one would take long over)
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+chol_below_lanes(const int* __restrict__ widths,
+                 const int* __restrict__ nbelow, const T* __restrict__ D,
+                 const T* __restrict__ Bm, T* __restrict__ dd,
+                 T* __restrict__ db, const T* __restrict__ W, int B, int cp,
+                 int rbp, int ldw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldx = ldw + 1;
+  T* Lt = reinterpret_cast<T*>(smem);    // (32 x kLdT) Lt[k*kLdT + j]: a
+                                         // tile of L11 or Linv, transposed
+  T* X = Lt + kPanel * kLdT;             // (kRT x ldx) rows of B, then X
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int w = clampi(widths[b], cp);
+  const T* Wb = W + (long long)b * (cp + kPanel) * ldw;
+  const int nbt = (rbp + kRT - 1) / kRT;
+  if ((int)blockIdx.y >= nbt) {
+    // dd (element e = i*cp + c of task b at e*B + b)
+    const int i0 = (blockIdx.y - nbt) * kRT;
+    const long long o0 = (long long)i0 * cp;
+    batched<T>(min(kRT, cp - i0), cp, [&](int e, int r, int c) {
+      const int i = i0 + r;
+      if (i >= w || c >= w) return T(0);
+      return (c <= i ? Wb[(long long)i * ldw + c] : T(0))
+             - D[(o0 + e) * B + b];
+    }, [&](int e, int, int, T v) { dd[(o0 + e) * B + b] = v; });
+    return;
+  }
+  const int r0 = blockIdx.y * kRT;
+  const int rows = min(kRT, rbp - r0);
+  const int nrows = max(0, min(rows, clampi(nbelow[b], rbp) - r0));
+  if (nrows > 0 && w > 0) {
+    batched<T>(kRT, ldw, [&](int, int r, int c) {
+      return (r < nrows && c < w) ? Bm[lidx(r0 + r, c, b, cp, B)] : T(0);
+    }, [&](int, int r, int c, T v) { X[r * ldx + c] = v; });
+    const int tx = tid % 8, ty = tid / 8;  // columns 4tx.., rows ty, ty + 16
+    constexpr int kPer = kPanel * kPanel / kRowThreads;
+    // a 32 x 32 tile of the workspace at (row0, col0), fetched into
+    // registers (its loads in flight during the product before it) and put
+    // transposed into Lt
+    T pre[kPer], pinv[kPer];
+    auto fetch = [&](T* dst, int row0, int col0, int nr) {
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int e = tid + u * kRowThreads, j = e / kPanel, k = e % kPanel;
+        dst[u] = j < nr ? Wb[(long long)(row0 + j) * ldw + col0 + k] : T(0);
+      }
+    };
+    auto put = [&](const T* src) {
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int e = tid + u * kRowThreads;
+        Lt[(e % kPanel) * kLdT + e / kPanel] = src[u];
+      }
+    };
+    for (int s = 0; s < w; s += kPanel) {
+      fetch(pinv, cp, s, kPanel);        // Linv_ss
+      if (s > 0) fetch(pre, s, 0, w - s);
+      __syncthreads();                   // X staged or written back
+      T acc[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          acc[m][n] = X[(ty + 16 * m) * ldx + s + 4 * tx + n];
+      // acc = B_s - X_{<s} L11[s, <s]^T
+      for (int k0 = 0; k0 < s; k0 += kPanel) {
+        put(pre);
+        __syncthreads();
+        if (k0 + kPanel < s) fetch(pre, s, k0 + kPanel, w - s);
+#pragma unroll 8
+        for (int k = 0; k < kPanel; ++k) {
+          const T x0 = X[ty * ldx + k0 + k];
+          const T x1 = X[(ty + 16) * ldx + k0 + k];
+          T v[4];
+          ld4(Lt + k * kLdT + 4 * tx, v);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            acc[0][n] -= x0 * v[n];
+            acc[1][n] -= x1 * v[n];
+          }
+        }
+        __syncthreads();
+      }
+      // X_s = acc Linv_ss^T
+      put(pinv);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          X[(ty + 16 * m) * ldx + s + 4 * tx + n] = acc[m][n];
+      __syncthreads();
+      T y[2][4] = {};
+#pragma unroll 8
+      for (int k = 0; k < kPanel; ++k) {
+        const T x0 = X[ty * ldx + s + k];
+        const T x1 = X[(ty + 16) * ldx + s + k];
+        T v[4];
+        ld4(Lt + k * kLdT + 4 * tx, v);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          y[0][n] += x0 * v[n];
+          y[1][n] += x1 * v[n];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          X[(ty + 16 * m) * ldx + s + 4 * tx + n] = y[m][n];
+    }
+    __syncthreads();
+  }
+  // db (element e = r*cp + c of the tile at (r0*cp + e)*B + b)
+  const long long o0 = (long long)r0 * cp;
+  batched<T>(rows, cp, [&](int e, int r, int c) {
+    return (r < nrows && c < w) ? X[r * ldx + c] - Bm[(o0 + e) * B + b]
+                                : T(0);
+  }, [&](int e, int, int, T v) { db[(o0 + e) * B + b] = v; });
+}
+
+// ---------------------------------------------------------------------------
+// LU diagonal phase; workspace W (B, cp, cp): W[b][c*cp + i] holds A[i][c]
+// ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxCp)
@@ -148,7 +524,7 @@ lu_diag_lanes(const int* __restrict__ widths, const T* __restrict__ DL,
 }
 
 // ---------------------------------------------------------------------------
-// below phase
+// LU below phase
 // ---------------------------------------------------------------------------
 
 // x M = Bs[r, :w] for one below row r of task b, M upper triangular with
@@ -197,7 +573,7 @@ __device__ void finish_row(const T* __restrict__ Bs, T* __restrict__ out,
   }
 }
 
-template <typename T, bool kLU>
+template <typename T>
 __global__ void __launch_bounds__(kBelowThreads)
 below_lanes(const int* __restrict__ widths, const int* __restrict__ nbelow,
             const T* __restrict__ BL, const T* __restrict__ BU,
@@ -210,20 +586,14 @@ below_lanes(const int* __restrict__ widths, const int* __restrict__ nbelow,
   const int w = clampi(widths[b], cp);
   const bool live = r < clampi(nbelow[b], rbp);
   const T* Wb = W + (long long)b * cp * cp;
-  if (kLU) {
-    // L21 U11 = BL: M = U11, U(k, j) = A[k][j] = Wb[j*cp + k]
-    // U12^T L11^T = BU: M = L11^T, L(j, k) = A[j][k] = Wb[k*cp + j], unit
-    if (live) {
-      solve_row<T>(BL, dbl, Wb, 1, cp, false, r, b, w, cp, B);
-      solve_row<T>(BU, dbu, Wb, cp, 1, true, r, b, w, cp, B);
-    }
-    finish_row<T>(BL, dbl, live, r, b, w, cp, B);
-    finish_row<T>(BU, dbu, live, r, b, w, cp, B);
-  } else {
-    // L21 L11^T = B: M = L11^T, L(j, k) = Wb[k*cp + j]
-    if (live) solve_row<T>(BL, dbl, Wb, cp, 1, false, r, b, w, cp, B);
-    finish_row<T>(BL, dbl, live, r, b, w, cp, B);
+  // L21 U11 = BL: M = U11, U(k, j) = A[k][j] = Wb[j*cp + k]
+  // U12^T L11^T = BU: M = L11^T, L(j, k) = A[j][k] = Wb[k*cp + j], unit
+  if (live) {
+    solve_row<T>(BL, dbl, Wb, 1, cp, false, r, b, w, cp, B);
+    solve_row<T>(BU, dbu, Wb, cp, 1, true, r, b, w, cp, B);
   }
+  finish_row<T>(BL, dbl, live, r, b, w, cp, B);
+  finish_row<T>(BU, dbu, live, r, b, w, cp, B);
 }
 
 int diag_threads(int cp) { return (cp + 31) / 32 * 32; }
@@ -231,6 +601,24 @@ int diag_threads(int cp) { return (cp + 31) / 32 * 32; }
 unsigned below_blocks(int B, int rbp) {
   return (unsigned)(((long long)B * rbp + kBelowThreads - 1) /
                     kBelowThreads);
+}
+
+// Allow a kernel the dynamic shared memory it takes beyond 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <typename T>
+size_t chol_diag_smem(int ldw) {
+  return (size_t)kPanel * (2 * ldw + 4 + kLdT + 1) * sizeof(T);
+}
+
+template <typename T>
+size_t chol_below_smem(int ldw) {
+  return ((size_t)kRT * (ldw + 1) + (size_t)kPanel * kLdT) * sizeof(T);
 }
 
 template <typename T>
@@ -241,13 +629,26 @@ int chol_launch(const void* widths, const void* nbelow, const void* D,
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  chol_diag_lanes<T><<<(unsigned)B, diag_threads(cp), 0, st>>>(
-      (const int*)widths, (const T*)D, (T*)dd, (T*)ws, B, cp);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || rbp == 0) return (int)e;
-  below_lanes<T, false><<<below_blocks(B, rbp), kBelowThreads, 0, st>>>(
-      (const int*)widths, (const int*)nbelow, (const T*)Bm, nullptr,
-      (T*)db, nullptr, (const T*)ws, B, cp, rbp);
+  static bool smem_allowed = false;   // once, before any graph capture
+  cudaError_t e;
+  if (!smem_allowed) {
+    e = allow_smem(chol_diag_lanes<T>, chol_diag_smem<T>(kMaxCp));
+    if (e == cudaSuccess)
+      e = allow_smem(chol_below_lanes<T>, chol_below_smem<T>(kMaxCp));
+    if (e != cudaSuccess) return (int)e;
+    smem_allowed = true;
+  }
+  const int ldw = (cp + kPanel - 1) / kPanel * kPanel;
+  chol_diag_lanes<T><<<(unsigned)B, chol_diag_threads<T>(),
+                       chol_diag_smem<T>(ldw), st>>>(
+      (const int*)widths, (const T*)D, (T*)ws, B, cp, ldw);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)B,
+                  (unsigned)((rbp + kRT - 1) / kRT + (cp + kRT - 1) / kRT));
+  chol_below_lanes<T><<<grid, kRowThreads, chol_below_smem<T>(ldw), st>>>(
+      (const int*)widths, (const int*)nbelow, (const T*)D, (const T*)Bm,
+      (T*)dd, (T*)db, (const T*)ws, B, cp, rbp, ldw);
   return (int)cudaGetLastError();
 }
 
@@ -265,7 +666,7 @@ int lu_launch(const void* widths, const void* nbelow, const void* DL,
       (T*)ws, B, cp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || rbp == 0) return (int)e;
-  below_lanes<T, true><<<below_blocks(B, rbp), kBelowThreads, 0, st>>>(
+  below_lanes<T><<<below_blocks(B, rbp), kBelowThreads, 0, st>>>(
       (const int*)widths, (const int*)nbelow, (const T*)BL, (const T*)BU,
       (T*)dbl, (T*)dbu, (const T*)ws, B, cp, rbp);
   return (int)cudaGetLastError();

@@ -18,7 +18,10 @@ tensor takes the plain PyTorch version, the task-major one of
 ``panel_wide`` through a transpose; a CUDA tensor launches the kernel of
 csrc/panel_lanes.cu or raises. The kernel runs as two launches (a
 diagonal phase, then a below-panel phase reading the factor from a
-workspace); the pair counts as one launch.
+workspace); the pair counts as one launch. The Cholesky kernel works in
+32-column blocks over the diagonal blocks' explicit inverses, which it
+keeps in 32 extra rows of its workspace; the LU kernel runs the TPU
+kernel's column recurrences.
 """
 
 from __future__ import annotations
@@ -62,8 +65,11 @@ def chol_panel_deltas_lanes(widths, nbelow, DrawT, BrawT, cp: int, rbp: int):
         return chol_panel_deltas_lanes_plain(widths, nbelow, DrawT, BrawT,
                                              cp, rbp)
     outs = (torch.empty_like(DrawT), torch.empty_like(BrawT))
+    # the factor in rows 0 .. cp - 1, the diagonal blocks' inverses in rows
+    # cp .. cp + 31; each row padded to a multiple of 32 values
+    B = widths.shape[0]
     launch("panel_lanes", "chol", widths, nbelow, (DrawT, BrawT), outs, cp,
-           rbp)
+           rbp, ws_shape=(B, cp + 32, -(-cp // 32) * 32))
     return outs
 
 

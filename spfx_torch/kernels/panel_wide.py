@@ -78,12 +78,12 @@ def check_panel(name: str, widths, nbelow, diag, below, cp: int, rbp: int,
 
 
 def launch(lib_name: str, kind: str, widths, nbelow, ins, outs, cp: int,
-           rbp: int) -> None:
+           rbp: int, ws_shape: tuple | None = None) -> None:
     """Launch the ``kind`` ('chol' or 'lu') kernel of library ``lib_name``
-    on CUDA tensors, with a (B, cp, cp) workspace for the factor that the
-    below-panel phase reads."""
+    on CUDA tensors, with a workspace for the factor that the below-panel
+    phase reads: (B, cp, cp) unless the kernel takes ``ws_shape``."""
     B = widths.shape[0]
-    ws = ins[0].new_empty((B, cp, cp))
+    ws = ins[0].new_empty((B, cp, cp) if ws_shape is None else ws_shape)
     fn = getattr(_cuda.lib(lib_name), f"spfx_{kind}_{lib_name}_"
                  + ("f32" if ins[0].dtype == torch.float32 else "f64"))
     rc = fn(widths.data_ptr(), nbelow.data_ptr(),
