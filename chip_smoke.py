@@ -21,11 +21,12 @@ non-zero):
    every PC step of the 48^3 plans (395 calls each; the panels taken from
    the assembled arrays), in f32 and f64, against their plain versions,
    with L11 L11^T = D, L21 L11^T = B (Cholesky) and L11 U11 = D,
-   L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part, and
-   chol_panel_deltas_lanes at five seeded edge calls of its blocking; then
-   times of kernel, plain version and library calls at the largest call
-   by work, each kernel's bound, and the whole path's calls in one graph
-   (for Cholesky the library calls' path too);
+   L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part, and both
+   lanes kernels at five seeded edge calls of their blocking; then times
+   of kernel, plain version and library calls at the largest call by work,
+   each kernel's bound, the whole path's calls in one graph and the
+   library calls over the path (LU's eagerly, since lu_factor_ex cannot
+   be captured, with their device time from torch.profiler beside);
 3d. extend_add_rows at every UT step of the 48^3 Cholesky plan (1,126
    calls: each step's row table and slab view of a seeded flat array, E
    seeded in the step's shape), in f32 and f64, against the plain version;
@@ -460,16 +461,17 @@ def panel_residuals(w, nb, cp: int, rbp: int, blks, outs, lu: bool):
     return [(what, mx(r), max(s, 1.0)) for what, r, s in res]
 
 
-def chol_lanes_edge_calls(dev, gen):
-    """Seeded Cholesky calls, task-major as ``panel_calls`` gives them, at
-    the edges of the lanes kernel's 32-column blocks and 32-row tiles:
+def lanes_edge_calls(dev, gen, lu: bool):
+    """Seeded calls of one kind, task-major as ``panel_calls`` gives them, at
+    the edges of the lanes kernels' 32-column blocks and 32-row tiles:
     (cp, rbp, B) = (256, 2561, 1) with w = 255, nb = 2500 (a masked last
-    block, rbp one past a multiple of 32); (256, 0, 2) (no below phase);
+    block, rbp one past a multiple of 32); (256, 0, 2) (no below rows);
     (160, 33, 1) (one row in the last tile); (96, 70, 2) with a dead task
     (w = 0, nb = 0) beside a full one; (70, 45, 3), a width that is no
-    multiple of 32 (a padded workspace row) and three tasks. SPD windows
-    X X^T + cp I with junk above the diagonal, as the CPU tests make
-    them."""
+    multiple of 32 (a padded workspace row) and three tasks. Cholesky: SPD
+    windows X X^T + cp I with junk above the diagonal; LU: diagonally
+    dominant unsymmetric fronts A as DL (lower) and DU (U^T strictly lower),
+    with junk where neither side is read; as the CPU tests make them."""
     import torch
     out = []
     for cp, rbp, ws, nbs in ((256, 2561, [255], [2500]),
@@ -479,13 +481,21 @@ def chol_lanes_edge_calls(dev, gen):
                              (70, 45, [70, 33, 1], [45, 0, 44])):
         B = len(ws)
         f64 = dict(device=dev, dtype=torch.float64)
+        eye = torch.eye(cp, **f64)
         X = torch.randn((B, cp, cp), generator=gen, **f64)
-        D = X @ X.mT + cp * torch.eye(cp, **f64)
-        D = torch.tril(D) + torch.triu(torch.full_like(D, 7.0), 1)
-        Bm = torch.randn((B, rbp, cp), generator=gen, **f64)
+        if lu:
+            X = X + (X.abs().sum(2, keepdim=True) + 1.0) * eye
+            junk = torch.triu(torch.full((cp, cp), 5.0, **f64), 1)
+            blks = [torch.tril(X) + junk,
+                    torch.tril(X.mT, -1) + junk + 3.0 * eye]
+        else:
+            D = X @ X.mT + cp * eye
+            blks = [torch.tril(D) + torch.triu(torch.full_like(D, 7.0), 1)]
+        blks += [torch.randn((B, rbp, cp), generator=gen, **f64)
+                 for _ in range(2 if lu else 1)]
         i32 = dict(device=dev, dtype=torch.int32)
         out.append((torch.tensor(ws, **i32), torch.tensor(nbs, **i32), cp,
-                    rbp, [D, Bm]))
+                    rbp, blks))
     return out
 
 
@@ -553,46 +563,82 @@ def chol_library(w, nb, cp: int, rbp: int, Draw, Braw):
     return library
 
 
+def lu_library(w, nb, cp: int, rbp: int, DL, DU, BL, BU):
+    """The LU library yardstick of one call, ``lu_factor_ex(pivot=False)``
+    + two ``solve_triangular``, as a closure over its masked inputs: the
+    live front (DL on and below the diagonal, DU^T above it), the identity
+    on the padding, the live below entries."""
+    import torch
+    i = torch.arange(cp, device=w.device)
+    cm = i[None, :] < w[:, None]
+    live = cm[:, :, None] & cm[:, None, :]
+    bm = (torch.arange(rbp, device=w.device)[None, :] < nb[:, None]
+          )[:, :, None] & cm[:, None, :]
+    low = i[:, None] >= i[None, :]
+    Dm = (torch.where(live & low, DL, 0)
+          + torch.where(live & ~low, DU.transpose(1, 2), 0)
+          + torch.diag_embed((~cm).to(DL.dtype)))
+    BLm, BUm = torch.where(bm, BL, 0), torch.where(bm, BU, 0)
+
+    def library():
+        LU, _, _ = torch.linalg.lu_factor_ex(Dm, pivot=False)
+        if not rbp:
+            return LU
+        return (torch.linalg.solve_triangular(LU, BLm, upper=True,
+                                              left=False),
+                torch.linalg.solve_triangular(
+                    LU.mT, BUm, upper=True, left=False, unitriangular=True))
+    return library
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` under torch.profiler: the sum of
+    its CUDA kernels' self times over ``reps`` eager calls, per call (for
+    a call that cannot be captured in a CUDA graph, whose eager time counts
+    its host launches too)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return cuda_self_ms(prof.key_averages()) / reps
+
+
+def cuda_self_ms(events) -> float:
+    """The sum of the CUDA kernels' self times of a profile's
+    ``key_averages()``, in ms, as the profiler table's footer counts it."""
+    import torch
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
 def panel_rows(calls, dtype: str, lu: bool):
     """Times (kernel, plain, library) and bound of both families of one kind
     at the path's largest call by work, and of all of the path's calls in
-    one graph."""
+    one graph; the library calls over the path too. LU's library calls
+    cannot be captured (``lu_factor_ex(pivot=False)``), so they are timed
+    eagerly, their host launches included, and their device time is taken
+    from the profiler beside (``library_device_ms``,
+    ``library_path_device_ms``)."""
     import torch
     from spfx_torch.kernels.panel_lanes import to_lanes
     td = getattr(torch, dtype)
     item = torch.tensor([], dtype=td).element_size()
     work_of = lu_panel_work if lu else chol_panel_work
+    make_library = lu_library if lu else chol_library
     kind = "lu" if lu else "chol"
     plain, fams = panel_fns(lu)
     w, nb, cp, rbp, blks = max(calls, key=lambda c: work_of(
         c[0], c[1], c[2], c[3], item)[1])
     blks = [b.to(td) for b in blks]
     bms, by = bound(*work_of(w, nb, cp, rbp, item), dtype)
-    if lu:
-        # the library yardstick on the masked blocks: identity on the padding
-        i = torch.arange(cp, device=w.device)
-        cm = i[None, :] < w[:, None]
-        live = cm[:, :, None] & cm[:, None, :]
-        pad = torch.diag_embed((~cm).to(td))
-        bm = (torch.arange(rbp, device=w.device)[None, :] < nb[:, None]
-              )[:, :, None] & cm[:, None, :]
-        DL, DU, BL, BU = blks
-        low = i[:, None] >= i[None, :]
-        Dm = (torch.where(live & low, DL, 0)
-              + torch.where(live & ~low, DU.transpose(1, 2), 0) + pad)
-        BLm, BUm = torch.where(bm, BL, 0), torch.where(bm, BU, 0)
-
-        def library():
-            LU, _, _ = torch.linalg.lu_factor_ex(Dm, pivot=False)
-            return (torch.linalg.solve_triangular(LU, BLm, upper=True,
-                                                  left=False),
-                    torch.linalg.solve_triangular(
-                        LU.mT, BUm, upper=True, left=False,
-                        unitriangular=True))
-        # lu_factor_ex(pivot=False) cannot be captured in a CUDA graph
-        library_ms = time_ms(library, graph=False)
-    else:
-        library_ms = time_ms(chol_library(w, nb, cp, rbp, *blks))
+    library = make_library(w, nb, cp, rbp, *blks)
+    library_ms = time_ms(library, graph=not lu)
+    library_device = device_ms(library) if lu else None
     plain_ms = time_ms(lambda: plain(w, nb, *blks, cp, rbp), reps=2,
                        rounds=3)
     rows = {}
@@ -601,15 +647,14 @@ def panel_rows(calls, dtype: str, lu: bool):
     work = [work_of(c[0], c[1], c[2], c[3], item) for c in pcd]
     path_bound = bound(sum(b for b, _ in work), sum(o for _, o in work),
                        dtype)[0]
-    library_path_ms = None
-    if not lu:
-        libs = [chol_library(*c[:4], *c[4]) for c in pcd]
+    libs = [make_library(*c[:4], *c[4]) for c in pcd]
 
-        def library_path():
-            for lib in libs:
-                lib()
-        library_path_ms = time_ms(library_path, reps=1, rounds=3)
-        del libs
+    def library_path():
+        for lib in libs:
+            lib()
+    library_path_ms = time_ms(library_path, reps=1, rounds=3, graph=not lu)
+    library_path_device = device_ms(library_path, reps=1) if lu else None
+    del libs
     for fam, fn in fams.items():
         if fam == "lanes":
             ins = [to_lanes(b) for b in blks]
@@ -625,9 +670,11 @@ def panel_rows(calls, dtype: str, lu: bool):
         rows[f"{kind}_panel_{fam}"] = dict(
             shape=f"cp={cp} rbp={rbp} B={len(w)}",
             ms=time_ms(lambda fn=fn, ins=ins: fn(w, nb, *ins, cp, rbp)),
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_device_ms=library_device, bound_ms=bms,
             bound_by=by, path_ms=time_ms(path, reps=1, rounds=3),
-            path_bound_ms=path_bound, library_path_ms=library_path_ms)
+            path_bound_ms=path_bound, library_path_ms=library_path_ms,
+            library_path_device_ms=library_path_device)
         del pins
     return rows
 
@@ -1198,9 +1245,7 @@ def profile_pass(ctx, A, name: str) -> float:
         ctx.factorize(A)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)) / 1e3
+    device_ms = cuda_self_ms(events)
     table = events.table(sort_by="cuda_time_total", row_limit=25)
     with open(os.path.join(ROOT, "chiprun_out", f"{name}.txt"), "w") as fh:
         fh.write(table)
@@ -1330,15 +1375,14 @@ def main(argv) -> int:
                 f"{kind}_panel_lanes and {kind}_panel_wide, max abs err "
                 + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
                 + f" ({time.perf_counter() - t0:.1f} s)")
-        if not lu:
-            edge = chol_lanes_edge_calls(dev, gen)
-            for dtype in ("float32", "float64"):
-                worst = check_panels(edge, dtype, lu, families=("lanes",))
-                log(f"[kernels] {dtype}: {len(edge)} seeded edge calls of "
-                    "chol_panel_lanes, (cp, rbp, B) = "
-                    + ", ".join(str((c[2], c[3], len(c[0]))) for c in edge)
-                    + f", max abs err {worst['chol_panel_lanes']:.3e}")
-            del edge
+        edge = lanes_edge_calls(dev, gen, lu)
+        for dtype in ("float32", "float64"):
+            worst = check_panels(edge, dtype, lu, families=("lanes",))
+            log(f"[kernels] {dtype}: {len(edge)} seeded edge calls of "
+                f"{kind}_panel_lanes, (cp, rbp, B) = "
+                + ", ".join(str((c[2], c[3], len(c[0]))) for c in edge)
+                + f", max abs err {worst[f'{kind}_panel_lanes']:.3e}")
+        del edge
         prow = panel_rows(calls, "float32", lu)
         log(f"[kernels] f32 timing {kind} panels " + json.dumps(prow))
         rows.update(prow)
@@ -1487,7 +1531,9 @@ def main(argv) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "path_ms": r.get("path_ms"),
             "path_bound_ms": r.get("path_bound_ms"),
-            "library_path_ms": r.get("library_path_ms")})
+            "library_path_ms": r.get("library_path_ms"),
+            "library_device_ms": r.get("library_device_ms"),
+            "library_path_device_ms": r.get("library_path_device_ms")})
     for k in kernels:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

@@ -1,0 +1,240 @@
+"""Probe ``lu_panel_deltas_lanes`` on the card, one call of it at a time.
+
+    python -m spfx_torch.bench.lu_lanes_probe check
+    python -m spfx_torch.bench.lu_lanes_probe profile
+    python -m spfx_torch.bench.lu_lanes_probe variants [VARIANTS [SHAPES]]
+
+- ``check``: the kernel against its plain version at seeded shapes that
+  cross its 32-column blocks and 32-row tiles (f32 tolerance 1e-4, f64
+  1e-12, of the largest plain output), and its time at (cp, rbp, B) =
+  (256, 2560, 1), the 48^3 LU plan's heaviest call;
+- ``profile``: per-launch device times under torch.profiler of the kernel
+  (its two launches) and of the library calls, ``lu_factor_ex(pivot=False)``
+  + two ``solve_triangular``, at three shapes;
+- ``variants``: copies of ``csrc/panel_lanes.cu`` with parts edited out or
+  replaced, each built with nvcc and timed at SHAPES (a Python literal of
+  (B, cp, rbp) triples). VARIANTS is a file holding a Python literal list
+  of (name, [(old text, new text), ...]); without it, the parts of the
+  diagonal phase are cut one at a time (their outputs are then wrong: the
+  point is the time each part holds the call).
+
+Inputs are diagonally dominant unsymmetric fronts made from numpy
+``default_rng(1)``, as the CPU tests make them. Times are CUDA-graph
+replays between CUDA events (``time_ms``). Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ast
+import ctypes
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from spfx_torch.kernels import _cuda, panel_lanes
+
+CHECK_SHAPES = [(1, 256, 2561, [255], [2500]), (2, 256, 0, [256, 131], [0, 0]),
+                (1, 160, 33, [160], [33]), (2, 96, 70, [0, 96], [0, 70]),
+                (3, 70, 45, [70, 33, 1], [45, 0, 44]), (1, 40, 5, [17], [3]),
+                (2, 64, 64, [64, 64], [64, 30]),
+                (1, 256, 2560, [256], [2560]),
+                (64, 256, 300, [256] * 64, [300] * 64)]
+PROFILE_SHAPES = [(1, 256, 2560), (8, 256, 512), (64, 128, 300)]
+CUTS = [("full", []),
+        ("no factorization in the loop",
+         [("      lu_factor_diag_block(Dg, Lit, Ui, Dv, Wb, s + kPanel, "
+           "min(kPanel, t),\n", "      if (0) lu_factor_diag_block(Dg, Lit, "
+           "Ui, Dv, Wb, s + kPanel, min(kPanel, t),\n")]),
+        ("no rest of the trailing update",
+         [("        update(q);\n", "        ;\n")]),
+        ("no panels", [("for (int e = warp; e < nL + 2 * nC; e += nwarps)",
+                        "for (int e = warp; e < 0; e += nwarps)")]),
+        ("below phase only", [("  lu_diag_lanes<T><<<(unsigned)B,",
+                               "  if (0) lu_diag_lanes<T><<<(unsigned)B,")])]
+
+
+def lu_inputs(B: int, cp: int, rbp: int, widths=None, nbelow=None):
+    """(widths, nbelow, DL, DU, BL, BU), task-major numpy arrays."""
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((B, cp, cp))
+    A += (np.abs(A).sum(axis=2)[..., None] + 1.0) * np.eye(cp)[None]
+    junk = np.triu(np.full((cp, cp), 5.0), 1)[None]
+    DL = np.tril(A) + junk
+    DU = np.tril(np.swapaxes(A, 1, 2), -1) + junk + 3.0 * np.eye(cp)[None]
+    BL = rng.standard_normal((B, rbp, cp))
+    BU = rng.standard_normal((B, rbp, cp))
+    w = np.array(widths if widths is not None else [cp] * B, np.int32)
+    nb = np.array(nbelow if nbelow is not None else [rbp] * B, np.int32)
+    return w, nb, DL, DU, BL, BU
+
+
+def on_card(B, cp, rbp, dtype, widths=None, nbelow=None):
+    """(widths, nbelow, [DLt, DUt, BLt, BUt]) on the card, lanes layout."""
+    dev = torch.device("cuda")
+    w, nb, *blks = lu_inputs(B, cp, rbp, widths, nbelow)
+    lanes = [torch.from_numpy(np.ascontiguousarray(np.transpose(
+        b, (1, 2, 0)))).to(dev, dtype) for b in blks]
+    return (torch.from_numpy(w).to(dev), torch.from_numpy(nb).to(dev),
+            lanes)
+
+
+def time_ms(fn, reps: int = 10, rounds: int = 7) -> float:
+    """Median device time of one call: ``reps`` calls in one CUDA graph,
+    replayed ``rounds`` times between CUDA events."""
+    for _ in range(3):
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    return statistics.median(ts)
+
+
+def check() -> bool:
+    ok = True
+    for B, cp, rbp, ws, nbs in CHECK_SHAPES:
+        for td in (torch.float32, torch.float64):
+            w, nb, ins = on_card(B, cp, rbp, td, ws, nbs)
+            outs = panel_lanes.lu_panel_deltas_lanes(w, nb, *ins, cp, rbp)
+            ref = panel_lanes.lu_panel_deltas_lanes_plain(w, nb, *ins, cp,
+                                                          rbp)
+            torch.cuda.synchronize()
+            scale = max(max((float(r.abs().max()) for r in ref
+                             if r.numel()), default=0.0), 1.0)
+            err = max(float((o - r).abs().max()) if r.numel() else 0.0
+                      for o, r in zip(outs, ref))
+            tol = (1e-4 if td == torch.float32 else 1e-12) * scale
+            good = err <= tol and all(bool(torch.isfinite(o).all())
+                                      for o in outs)
+            ok &= good
+            line = (f"{td} (cp {cp}, rbp {rbp}, B {B}) err {err:.3e} tol "
+                    f"{tol:.3e} {'OK' if good else 'FAIL'}")
+            if td == torch.float32 and (cp, rbp, B) == (256, 2560, 1):
+                line += " time ms %.4f" % time_ms(
+                    lambda: panel_lanes.lu_panel_deltas_lanes(
+                        w, nb, *ins, cp, rbp))
+            print(line, flush=True)
+    return ok
+
+
+def profile() -> bool:
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    for B, cp, rbp in PROFILE_SHAPES:
+        w, nb, ins = on_card(B, cp, rbp, torch.float32)
+        DL, DU, BL, BU = (t.permute(2, 0, 1) for t in ins)
+        i = torch.arange(cp, device=w.device)
+        D = torch.where(i[:, None] >= i[None, :], DL, DU.transpose(1, 2))
+        BL, BU = BL.contiguous(), BU.contiguous()
+
+        def library():
+            LU, _, _ = torch.linalg.lu_factor_ex(D, pivot=False)
+            return (torch.linalg.solve_triangular(LU, BL, upper=True,
+                                                  left=False),
+                    torch.linalg.solve_triangular(
+                        LU.mT, BU, upper=True, left=False,
+                        unitriangular=True))
+
+        for name, fn in (("kernel", lambda: panel_lanes.lu_panel_deltas_lanes(
+                w, nb, *ins, cp, rbp)), ("library", library)):
+            fn()
+            torch.cuda.synchronize()
+            with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total]
+            total = sum(e.self_device_time_total for e in ev) / 20 / 1e3
+            print(f"(B {B}, cp {cp}, rbp {rbp}) {name}: device ms per call "
+                  f"{total:.4f}", flush=True)
+            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+                print(f"    {e.key[:80]:80s} "
+                      f"{e.self_device_time_total / 20 / 1e3:.4f} ms",
+                      flush=True)
+    return True
+
+
+def variants(spec=None, shapes=None) -> bool:
+    src_path = os.path.join(os.path.dirname(_cuda.__file__), "csrc",
+                            "panel_lanes.cu")
+    src = open(src_path).read()
+    todo = CUTS if spec is None else ast.literal_eval(open(spec).read())
+    shapes = PROFILE_SHAPES if shapes is None else ast.literal_eval(shapes)
+    tmp = tempfile.mkdtemp()
+    procs = []
+    for k, (name, edits) in enumerate(todo):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise ValueError(f"variant {name!r}: text not found: {old!r}")
+            text = text.replace(old, new)
+        cu = os.path.join(tmp, f"v{k}.cu")
+        with open(cu, "w") as fh:
+            fh.write(text)
+        procs.append((name, os.path.join(tmp, f"v{k}.so"), subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o",
+             os.path.join(tmp, f"v{k}.so"), cu], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for name, so, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name!r} does not build:\n{out}")
+        fn = ctypes.CDLL(so).spfx_lu_panel_lanes_f32
+        fn.argtypes = _cuda._PANEL_LU
+        fn.restype = ctypes.c_int
+        libs.append((name, fn, " ".join(line.split(":")[-1].strip()
+                                        for line in out.splitlines()
+                                        if "registers" in line)))
+        print(f"{name}: {libs[-1][2]}", flush=True)
+    for B, cp, rbp in shapes:
+        w, nb, ins = on_card(B, cp, rbp, torch.float32)
+        outs = [torch.empty_like(t) for t in ins]
+        ws = torch.empty((B, cp + 64, -(-cp // 32) * 32), device=w.device)
+        for name, fn, _ in libs:
+            def call(fn=fn):
+                rc = fn(w.data_ptr(), nb.data_ptr(),
+                        *(t.data_ptr() for t in (*ins, *outs, ws)), B, cp,
+                        rbp, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"variant {name!r}: CUDA error {rc}")
+            print(f"(B {B}, cp {cp}, rbp {rbp}) {name}: "
+                  f"{time_ms(call):.4f} ms", flush=True)
+    return True
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("lu_lanes_probe: no CUDA device", file=sys.stderr)
+        return 2
+    _cuda.build()
+    mode = argv[0] if argv else "check"
+    ok = {"check": check, "profile": profile,
+          "variants": lambda: variants(*argv[1:3])}[mode]()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -18,10 +18,10 @@ tensor takes the plain PyTorch version, the task-major one of
 ``panel_wide`` through a transpose; a CUDA tensor launches the kernel of
 csrc/panel_lanes.cu or raises. The kernel runs as two launches (a
 diagonal phase, then a below-panel phase reading the factor from a
-workspace); the pair counts as one launch. The Cholesky kernel works in
-32-column blocks over the diagonal blocks' explicit inverses, which it
-keeps in 32 extra rows of its workspace; the LU kernel runs the TPU
-kernel's column recurrences.
+workspace); the pair counts as one launch. Both kernels work in 32-column
+blocks over explicit inverses of the 32 x 32 diagonal blocks, which they
+keep in extra rows of the workspace: 32 for Cholesky's L, 64 for LU's L
+and U.
 """
 
 from __future__ import annotations
@@ -82,6 +82,10 @@ def lu_panel_deltas_lanes(widths, nbelow, DLt, DUt, BLt, BUt, cp: int,
         return lu_panel_deltas_lanes_plain(widths, nbelow, DLt, DUt, BLt,
                                            BUt, cp, rbp)
     outs = tuple(torch.empty_like(t) for t in (DLt, DUt, BLt, BUt))
+    # the combined factor (L below the diagonal, U on and above it) in rows
+    # 0 .. cp - 1, the inverses of L's diagonal blocks in rows cp .. cp + 31
+    # and of U's in rows cp + 32 .. cp + 63; rows padded as for Cholesky
+    B = widths.shape[0]
     launch("panel_lanes", "lu", widths, nbelow, (DLt, DUt, BLt, BUt), outs,
-           cp, rbp)
+           cp, rbp, ws_shape=(B, cp + 64, -(-cp // 32) * 32))
     return outs

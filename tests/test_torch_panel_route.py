@@ -119,27 +119,31 @@ def test_panel_deltas_match_pallas(fn_name, dtype, cp, rbp, B):
             assert np.abs(g - r).max() <= 1e-4 * max(np.abs(r).max(), 1.0)
 
 
-# the lanes Cholesky kernel's 32-column blocks and 32-row tiles: a masked
-# last block, one row past a tile, several 32-column blocks with B > 1 (B a
-# power of two: the Pallas lanes kernel runs B // lanes_slab(B) grid steps)
-LANES_CHOL_SHAPES = [(96, 70, 2), (160, 33, 1), (256, 40, 4)]
+# the lanes kernels' 32-column blocks and 32-row tiles: a masked last
+# block, one row past a tile, several 32-column blocks with B > 1 (B a power
+# of two: the Pallas lanes kernels run B // lanes_slab(B) grid steps)
+LANES_BLOCK_SHAPES = [(96, 70, 2), (160, 33, 1), (256, 40, 4)]
 
 
-@pytest.mark.parametrize("cp,rbp,B", LANES_CHOL_SHAPES,
+@pytest.mark.parametrize("cp,rbp,B", LANES_BLOCK_SHAPES,
                          ids=[f"cp{c}-rbp{r}-B{b}"
-                              for c, r, b in LANES_CHOL_SHAPES])
+                              for c, r, b in LANES_BLOCK_SHAPES])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_chol_panel_deltas_lanes_blocks_match_pallas(dtype, cp, rbp, B):
-    """chol_panel_deltas_lanes at shapes that cross its 32-column blocks,
-    with the tolerances of test_panel_deltas_match_pallas."""
-    seed = 200 + 10 * LANES_CHOL_SHAPES.index((cp, rbp, B))
-    w, nb, D, Bm = _chol_inputs(B, cp, rbp, DTYPES[dtype][0], seed)
-    ref, got = _run("chol_panel_deltas_lanes", w, nb, (D, Bm), cp, rbp,
-                    dtype)
+@pytest.mark.parametrize("kind", ["chol", "lu"])
+def test_panel_deltas_lanes_blocks_match_pallas(kind, dtype, cp, rbp, B):
+    """chol_ and lu_panel_deltas_lanes at shapes that cross their 32-column
+    blocks, with the tolerances of test_panel_deltas_match_pallas."""
+    lu = kind == "lu"
+    seed = 200 + 10 * LANES_BLOCK_SHAPES.index((cp, rbp, B)) + lu
+    ins = (_lu_inputs if lu else _chol_inputs)(B, cp, rbp, DTYPES[dtype][0],
+                                               seed)
+    ref, got = _run(f"{kind}_panel_deltas_lanes", ins[0], ins[1], ins[2:],
+                    cp, rbp, dtype)
+    assert len(got) == (4 if lu else 2)
     for r, g in zip(ref, got):
         assert g.shape == r.shape and g.dtype == r.dtype
         if dtype == "float64":
-            assert np.abs(g - r).max() <= 1e-10
+            assert np.abs(g - r).max() <= (1e-8 if lu else 1e-10)
         else:
             assert np.abs(g - r).max() <= 1e-4 * max(np.abs(r).max(), 1.0)
 
