@@ -21,8 +21,9 @@ non-zero):
    every PC step of the 48^3 plans (395 calls each; the panels taken from
    the assembled arrays), in f32 and f64, against their plain versions,
    with L11 L11^T = D, L21 L11^T = B (Cholesky) and L11 U11 = D,
-   L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part, and both
-   lanes kernels at five seeded edge calls of their blocking; then times
+   L21 U11 = BL, U12^T L11^T = BU (LU) checked on the live part, and all
+   four kernels at five seeded edge calls of their blocking (both
+   families share one blocked design, csrc/panel_blocks.cuh); then times
    of kernel, plain version and library calls at the largest call by work,
    each kernel's bound, the whole path's calls in one graph and the
    library calls over the path (LU's eagerly, since lu_factor_ex cannot
@@ -461,9 +462,10 @@ def panel_residuals(w, nb, cp: int, rbp: int, blks, outs, lu: bool):
     return [(what, mx(r), max(s, 1.0)) for what, r, s in res]
 
 
-def lanes_edge_calls(dev, gen, lu: bool):
+def panel_edge_calls(dev, gen, lu: bool):
     """Seeded calls of one kind, task-major as ``panel_calls`` gives them, at
-    the edges of the lanes kernels' 32-column blocks and 32-row tiles:
+    the edges of the whole-panel kernels' 32-column blocks and 32-row tiles
+    (the same in both families):
     (cp, rbp, B) = (256, 2561, 1) with w = 255, nb = 2500 (a masked last
     block, rbp one past a multiple of 32); (256, 0, 2) (no below rows);
     (160, 33, 1) (one row in the last tile); (96, 70, 2) with a dead task
@@ -499,22 +501,21 @@ def lanes_edge_calls(dev, gen, lu: bool):
     return out
 
 
-def check_panels(calls, dtype: str, lu: bool, families=("lanes", "wide")):
+def check_panels(calls, dtype: str, lu: bool):
     """Every call of both families of one kind against the plain version,
     and the reconstructions of ``panel_residuals``. Tolerances: kernel vs
     plain f32 1e-4, f64 1e-12, relative to the largest entry of the plain
     outputs (the same recurrences, sums taken in other orders, blocked by
-    32 columns in the wide kernels); reconstructions f32 1e-6, f64 1e-14,
+    32 columns in the kernels); reconstructions f32 1e-6, f64 1e-14,
     relative to cp times the product of the factors' largest entries (a
     w-term sum's rounding). Returns {kernel name: largest |kernel - plain|}
-    over the ``families`` checked."""
+    for both families."""
     import torch
     td = getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 1e-12
     rtol = 1e-6 if dtype == "float32" else 1e-14
     kind = "lu" if lu else "chol"
     plain, fams = panel_fns(lu)
-    fams = {f: fams[f] for f in families}
     worst = {f"{kind}_panel_{f}": 0.0 for f in fams}
     for w, nb, cp, rbp, blks in calls:
         blks = [b.to(td) for b in blks]
@@ -1375,13 +1376,14 @@ def main(argv) -> int:
                 f"{kind}_panel_lanes and {kind}_panel_wide, max abs err "
                 + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
                 + f" ({time.perf_counter() - t0:.1f} s)")
-        edge = lanes_edge_calls(dev, gen, lu)
+        edge = panel_edge_calls(dev, gen, lu)
         for dtype in ("float32", "float64"):
-            worst = check_panels(edge, dtype, lu, families=("lanes",))
+            worst = check_panels(edge, dtype, lu)
             log(f"[kernels] {dtype}: {len(edge)} seeded edge calls of "
-                f"{kind}_panel_lanes, (cp, rbp, B) = "
+                f"{kind}_panel_lanes and {kind}_panel_wide, (cp, rbp, B) = "
                 + ", ".join(str((c[2], c[3], len(c[0]))) for c in edge)
-                + f", max abs err {worst[f'{kind}_panel_lanes']:.3e}")
+                + ", max abs err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
         del edge
         prow = panel_rows(calls, "float32", lu)
         log(f"[kernels] f32 timing {kind} panels " + json.dumps(prow))

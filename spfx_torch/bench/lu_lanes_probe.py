@@ -2,7 +2,8 @@
 
     python -m spfx_torch.bench.lu_lanes_probe check
     python -m spfx_torch.bench.lu_lanes_probe profile
-    python -m spfx_torch.bench.lu_lanes_probe variants [VARIANTS [SHAPES]]
+    python -m spfx_torch.bench.lu_lanes_probe variants [VARIANTS [SHAPES
+        [FAMILY]]]
 
 - ``check``: the kernel against its plain version at seeded shapes that
   cross its 32-column blocks and 32-row tiles (f32 tolerance 1e-4, f64
@@ -11,12 +12,16 @@
 - ``profile``: per-launch device times under torch.profiler of the kernel
   (its two launches) and of the library calls, ``lu_factor_ex(pivot=False)``
   + two ``solve_triangular``, at three shapes;
-- ``variants``: copies of ``csrc/panel_lanes.cu`` with parts edited out or
-  replaced, each built with nvcc and timed at SHAPES (a Python literal of
-  (B, cp, rbp) triples). VARIANTS is a file holding a Python literal list
-  of (name, [(old text, new text), ...]); without it, the parts of the
-  diagonal phase are cut one at a time (their outputs are then wrong: the
-  point is the time each part holds the call).
+- ``variants``: copies of ``csrc/panel_lanes.cu`` (or, with FAMILY
+  ``wide``, ``csrc/panel_wide.cu``) and the header it includes,
+  ``csrc/panel_blocks.cuh``, with parts edited out or replaced (each edit
+  in whichever file holds its text), each copy built with nvcc and timed
+  at SHAPES: a Python literal of (B, cp, rbp) triples, or ``plan``, the
+  48^3 LU plan's four PC buckets with the most tasks, with their widths
+  and nbelow. VARIANTS is a file holding a Python literal list of (name,
+  [(old text, new text), ...]); without it (or with ``-``), the parts of
+  the diagonal phase are cut one at a time (their outputs are then wrong:
+  the point is the time each part holds the call).
 
 Inputs are diagonally dominant unsymmetric fronts made from numpy
 ``default_rng(1)``, as the CPU tests make them. Times are CUDA-graph
@@ -54,8 +59,9 @@ CUTS = [("full", []),
          [("        update(q);\n", "        ;\n")]),
         ("no panels", [("for (int e = warp; e < nL + 2 * nC; e += nwarps)",
                         "for (int e = warp; e < 0; e += nwarps)")]),
-        ("below phase only", [("  lu_diag_lanes<T><<<(unsigned)B,",
-                               "  if (0) lu_diag_lanes<T><<<(unsigned)B,")])]
+        ("below phase only",
+         [("  diag<<<(unsigned)B, panel_diag_threads<T>(), lu_",
+           "  if (0) diag<<<(unsigned)B, panel_diag_threads<T>(), lu_")])]
 
 
 def lu_inputs(B: int, cp: int, rbp: int, widths=None, nbelow=None):
@@ -73,14 +79,27 @@ def lu_inputs(B: int, cp: int, rbp: int, widths=None, nbelow=None):
     return w, nb, DL, DU, BL, BU
 
 
-def on_card(B, cp, rbp, dtype, widths=None, nbelow=None):
-    """(widths, nbelow, [DLt, DUt, BLt, BUt]) on the card, lanes layout."""
+def on_card(B, cp, rbp, dtype, widths=None, nbelow=None, lanes=True):
+    """(widths, nbelow, [DL, DU, BL, BU]) on the card, in lanes layout or
+    task-major."""
     dev = torch.device("cuda")
     w, nb, *blks = lu_inputs(B, cp, rbp, widths, nbelow)
-    lanes = [torch.from_numpy(np.ascontiguousarray(np.transpose(
-        b, (1, 2, 0)))).to(dev, dtype) for b in blks]
+    if lanes:
+        blks = [np.ascontiguousarray(np.transpose(b, (1, 2, 0)))
+                for b in blks]
     return (torch.from_numpy(w).to(dev), torch.from_numpy(nb).to(dev),
-            lanes)
+            [torch.from_numpy(b).to(dev, dtype) for b in blks])
+
+
+def plan_calls(grid: int = 48, top: int = 4):
+    """(B, cp, rbp, widths, nbelow) of the ``top`` PC buckets with the most
+    tasks in the LU plan of laplacian_3d(grid)."""
+    import spfx_torch
+    from spfx_torch.io import generate
+    plan = spfx_torch.LU(generate.laplacian_3d(grid), device="cuda").plan
+    calls = [(len(pb.widths), pb.cp, pb.rbp, list(pb.widths),
+              list(pb.nbelow)) for lp in plan.levels for pb in lp.panels]
+    return sorted(calls, key=lambda c: -c[0])[:top]
 
 
 def time_ms(fn, reps: int = 10, rounds: int = 7) -> float:
@@ -176,23 +195,36 @@ def profile() -> bool:
     return True
 
 
-def variants(spec=None, shapes=None) -> bool:
-    src_path = os.path.join(os.path.dirname(_cuda.__file__), "csrc",
-                            "panel_lanes.cu")
-    src = open(src_path).read()
-    todo = CUTS if spec is None else ast.literal_eval(open(spec).read())
-    shapes = PROFILE_SHAPES if shapes is None else ast.literal_eval(shapes)
+def variants(spec=None, shapes=None, family="lanes") -> bool:
+    csrc = os.path.join(os.path.dirname(_cuda.__file__), "csrc")
+    top = f"panel_{family}.cu"
+    sources = {f: open(os.path.join(csrc, f)).read()
+               for f in (top, "panel_blocks.cuh")}
+    todo = CUTS if spec in (None, "-") else \
+        ast.literal_eval(open(spec).read())
+    if shapes == "plan":
+        shapes = plan_calls()
+    elif shapes is None:
+        shapes = PROFILE_SHAPES
+    else:
+        shapes = ast.literal_eval(shapes)
     tmp = tempfile.mkdtemp()
     procs = []
     for k, (name, edits) in enumerate(todo):
-        text = src
+        texts = dict(sources)
         for old, new in edits:
-            if old not in text:
+            hits = [f for f, t in texts.items() if old in t]
+            if not hits:
                 raise ValueError(f"variant {name!r}: text not found: {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(tmp, f"v{k}.cu")
-        with open(cu, "w") as fh:
-            fh.write(text)
+            for f in hits:
+                texts[f] = texts[f].replace(old, new)
+        # each variant in a directory of its own, its header beside it
+        vdir = os.path.join(tmp, f"v{k}")
+        os.makedirs(vdir)
+        for f, t in texts.items():
+            with open(os.path.join(vdir, f), "w") as fh:
+                fh.write(t)
+        cu = os.path.join(vdir, top)
         procs.append((name, os.path.join(tmp, f"v{k}.so"), subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o",
              os.path.join(tmp, f"v{k}.so"), cu], stdout=subprocess.PIPE,
@@ -202,15 +234,16 @@ def variants(spec=None, shapes=None) -> bool:
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {name!r} does not build:\n{out}")
-        fn = ctypes.CDLL(so).spfx_lu_panel_lanes_f32
+        fn = getattr(ctypes.CDLL(so), f"spfx_lu_panel_{family}_f32")
         fn.argtypes = _cuda._PANEL_LU
         fn.restype = ctypes.c_int
         libs.append((name, fn, " ".join(line.split(":")[-1].strip()
                                         for line in out.splitlines()
                                         if "registers" in line)))
         print(f"{name}: {libs[-1][2]}", flush=True)
-    for B, cp, rbp in shapes:
-        w, nb, ins = on_card(B, cp, rbp, torch.float32)
+    for B, cp, rbp, *counts in shapes:
+        w, nb, ins = on_card(B, cp, rbp, torch.float32, *counts,
+                             lanes=family == "lanes")
         outs = [torch.empty_like(t) for t in ins]
         ws = torch.empty((B, cp + 64, -(-cp // 32) * 32), device=w.device)
         for name, fn, _ in libs:
@@ -232,7 +265,7 @@ def main(argv) -> int:
     _cuda.build()
     mode = argv[0] if argv else "check"
     ok = {"check": check, "profile": profile,
-          "variants": lambda: variants(*argv[1:3])}[mode]()
+          "variants": lambda: variants(*argv[1:4])}[mode]()
     return 0 if ok else 1
 
 

@@ -107,16 +107,26 @@ def _out_path(name: str) -> str:
     return os.path.join(build_dir(), f"lib{name}.so")
 
 
+def stale(out: str, src: str, headers) -> bool:
+    """Whether library ``out`` must be built again: it is missing, or not
+    newer than its source ``src`` or any of ``headers`` (a header may be
+    included by several sources, so an edit to it rebuilds them all)."""
+    if not os.path.exists(out):
+        return True
+    built = os.path.getmtime(out)
+    return any(os.path.getmtime(f) >= built for f in (src, *headers))
+
+
 def build() -> dict:
     """Compile every stale source, all ``nvcc`` processes started together.
     Returns {source name: nvcc output} for the sources it compiled; raises
     on any failure."""
     todo = []
+    headers = glob.glob(os.path.join(_CSRC, "*.cuh"))
     for src in sorted(glob.glob(os.path.join(_CSRC, "*.cu"))):
         name = os.path.splitext(os.path.basename(src))[0]
         out = _out_path(name)
-        if os.path.exists(out) and os.path.getmtime(out) > \
-                os.path.getmtime(src):
+        if not stale(out, src, headers):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]

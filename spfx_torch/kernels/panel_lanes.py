@@ -16,12 +16,11 @@ They compute what ``panel_wide``'s functions compute (see there), with
 cp <= 256, f32 or f64; ``rbp == 0`` returns a (0, cp, B) below delta. A CPU
 tensor takes the plain PyTorch version, the task-major one of
 ``panel_wide`` through a transpose; a CUDA tensor launches the kernel of
-csrc/panel_lanes.cu or raises. The kernel runs as two launches (a
-diagonal phase, then a below-panel phase reading the factor from a
-workspace); the pair counts as one launch. Both kernels work in 32-column
-blocks over explicit inverses of the 32 x 32 diagonal blocks, which they
-keep in extra rows of the workspace: 32 for Cholesky's L, 64 for LU's L
-and U.
+csrc/panel_lanes.cu or raises. The kernels are the wide ones' design in
+this layout (csrc/panel_blocks.cuh, see ``panel_wide``): 32-column blocks
+over explicit inverses of the 32 x 32 diagonal blocks, which they keep in
+extra rows of the workspace (32 for Cholesky's L, 64 for LU's L and U),
+run as two launches that count as one.
 """
 
 from __future__ import annotations
@@ -65,11 +64,8 @@ def chol_panel_deltas_lanes(widths, nbelow, DrawT, BrawT, cp: int, rbp: int):
         return chol_panel_deltas_lanes_plain(widths, nbelow, DrawT, BrawT,
                                              cp, rbp)
     outs = (torch.empty_like(DrawT), torch.empty_like(BrawT))
-    # the factor in rows 0 .. cp - 1, the diagonal blocks' inverses in rows
-    # cp .. cp + 31; each row padded to a multiple of 32 values
-    B = widths.shape[0]
     launch("panel_lanes", "chol", widths, nbelow, (DrawT, BrawT), outs, cp,
-           rbp, ws_shape=(B, cp + 32, -(-cp // 32) * 32))
+           rbp)
     return outs
 
 
@@ -82,10 +78,6 @@ def lu_panel_deltas_lanes(widths, nbelow, DLt, DUt, BLt, BUt, cp: int,
         return lu_panel_deltas_lanes_plain(widths, nbelow, DLt, DUt, BLt,
                                            BUt, cp, rbp)
     outs = tuple(torch.empty_like(t) for t in (DLt, DUt, BLt, BUt))
-    # the combined factor (L below the diagonal, U on and above it) in rows
-    # 0 .. cp - 1, the inverses of L's diagonal blocks in rows cp .. cp + 31
-    # and of U's in rows cp + 32 .. cp + 63; rows padded as for Cholesky
-    B = widths.shape[0]
     launch("panel_lanes", "lu", widths, nbelow, (DLt, DUt, BLt, BUt), outs,
-           cp, rbp, ws_shape=(B, cp + 64, -(-cp // 32) * 32))
+           cp, rbp)
     return outs

@@ -20,9 +20,12 @@ cp <= 256; f32 or f64. ``rbp == 0`` returns a (B, 0, cp) below delta. A
 CPU tensor takes the plain PyTorch version (``chol_panel_deltas_plain``,
 ``lu_panel_deltas_plain``, which the lanes family shares through a
 transpose); a CUDA tensor launches the kernel of csrc/panel_wide.cu or
-raises. The kernel runs as two launches (a diagonal phase, then a
-below-panel phase reading the factor from a workspace); the pair counts
-as one launch.
+raises. The kernel is the lanes kernels' design in this layout (the
+device code of csrc/panel_blocks.cuh): 32-column blocks over explicit
+inverses of the 32 x 32 diagonal blocks, run as two launches (a diagonal
+phase, one thread block per task, then a phase that solves the below
+blocks 32 rows to a thread block, reading the factor from a workspace);
+the pair counts as one launch.
 """
 
 from __future__ import annotations
@@ -78,12 +81,16 @@ def check_panel(name: str, widths, nbelow, diag, below, cp: int, rbp: int,
 
 
 def launch(lib_name: str, kind: str, widths, nbelow, ins, outs, cp: int,
-           rbp: int, ws_shape: tuple | None = None) -> None:
+           rbp: int) -> None:
     """Launch the ``kind`` ('chol' or 'lu') kernel of library ``lib_name``
-    on CUDA tensors, with a workspace for the factor that the below-panel
-    phase reads: (B, cp, cp) unless the kernel takes ``ws_shape``."""
+    ('panel_lanes' or 'panel_wide') on CUDA tensors, with the workspace
+    that its below-panel phase reads: the factor in rows 0 .. cp - 1 (for
+    LU the combined one, L below the diagonal, U on and above it), then
+    the inverses of its 32 x 32 diagonal blocks in 32 rows (Cholesky's L)
+    or 64 (LU's L, then U); each row padded to a multiple of 32 values."""
     B = widths.shape[0]
-    ws = ins[0].new_empty((B, cp, cp) if ws_shape is None else ws_shape)
+    ws = ins[0].new_empty((B, cp + (64 if kind == "lu" else 32),
+                           -(-cp // 32) * 32))
     fn = getattr(_cuda.lib(lib_name), f"spfx_{kind}_{lib_name}_"
                  + ("f32" if ins[0].dtype == torch.float32 else "f64"))
     rc = fn(widths.data_ptr(), nbelow.data_ptr(),

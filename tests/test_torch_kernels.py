@@ -1,7 +1,10 @@
 """Each kernel module of the port against its JAX counterpart on the CPU,
 with the same seeded numpy inputs: the plain window gathers against the
 XLA superwindow gather, the plain potrf_inv against the Pallas kernel in
-interpret mode, the blocked panel path, and one real UT update step."""
+interpret mode, the blocked panel path, and one real UT update step; and
+the kernel build's staleness test on temporary files."""
+
+import os
 
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from spfx.symbolic.analyze import analyze as janalyze
 from spfx.utils.config import Config as JConfig
 
 from spfx_torch.io import generate
-from spfx_torch.kernels import blocks, gather, panel
+from spfx_torch.kernels import _cuda, blocks, gather, panel
 from spfx_torch.plan.schedule import ALIGN, build_plan
 from spfx_torch.symbolic.analyze import analyze
 from spfx_torch.utils.config import Config
@@ -122,6 +125,30 @@ def test_window_gather_rejects_bad_input():
         gather.window_gather(L, ok, 100)
     with pytest.raises(TypeError):
         gather.window_gather(L.half(), ok, ALIGN)
+
+
+# --------------------------------------------------------------------------
+# the build's staleness test (no nvcc needed)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("newest,want", [
+    (None, True), ("lib", False), ("src", True), ("header", True),
+    ("other header", True)])
+def test_build_staleness_counts_headers(tmp_path, newest, want):
+    """A library is built again when it is missing, or when its source or
+    any csrc header is as new as it or newer; else it is kept."""
+    src, out = tmp_path / "k.cu", tmp_path / "libk.so"
+    headers = [tmp_path / "a.cuh", tmp_path / "b.cuh"]
+    files = {"src": src, "lib": out, "header": headers[0],
+             "other header": headers[1]}
+    for f in files.values():
+        f.write_text("")
+        os.utime(f, (1000, 1000))
+    if newest is None:
+        out.unlink()
+    else:
+        os.utime(files[newest], (2000, 2000))
+    assert _cuda.stale(str(out), str(src), [str(h) for h in headers]) is want
 
 
 # --------------------------------------------------------------------------

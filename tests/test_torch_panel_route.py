@@ -119,26 +119,37 @@ def test_panel_deltas_match_pallas(fn_name, dtype, cp, rbp, B):
             assert np.abs(g - r).max() <= 1e-4 * max(np.abs(r).max(), 1.0)
 
 
-# the lanes kernels' 32-column blocks and 32-row tiles: a masked last
-# block, one row past a tile, several 32-column blocks with B > 1 (B a power
-# of two: the Pallas lanes kernels run B // lanes_slab(B) grid steps)
-LANES_BLOCK_SHAPES = [(96, 70, 2), (160, 33, 1), (256, 40, 4)]
+# both families' 32-column blocks and 32-row tiles: a masked last block,
+# one row past a tile (or one short of it), several 32-column blocks with
+# B > 1. The shapes follow what the JAX kernels write in full: the lanes
+# ones run B // lanes_slab(B) grid steps, so B is a power of two there;
+# the wide ones run rbp // wide_row_blk(...) row steps and leave the rows
+# past the last full step unwritten (NaN in interpret mode at (32, 40, 1)
+# and (96, 70, 2), where the port's rows are right), so the wide shapes
+# are ones where every row is written.
+BLOCK_SHAPES = {"lanes": [(96, 70, 2), (160, 33, 1), (256, 40, 4)],
+                "wide": [(96, 64, 2), (160, 31, 1), (256, 128, 3)]}
+BLOCK_CASES = [(fam, cp, rbp, B) for fam, shapes in BLOCK_SHAPES.items()
+               for cp, rbp, B in shapes]
 
 
-@pytest.mark.parametrize("cp,rbp,B", LANES_BLOCK_SHAPES,
-                         ids=[f"cp{c}-rbp{r}-B{b}"
-                              for c, r, b in LANES_BLOCK_SHAPES])
+@pytest.mark.parametrize("family,cp,rbp,B", BLOCK_CASES,
+                         ids=[f"{f}-cp{c}-rbp{r}-B{b}"
+                              for f, c, r, b in BLOCK_CASES])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("kind", ["chol", "lu"])
-def test_panel_deltas_lanes_blocks_match_pallas(kind, dtype, cp, rbp, B):
-    """chol_ and lu_panel_deltas_lanes at shapes that cross their 32-column
-    blocks, with the tolerances of test_panel_deltas_match_pallas."""
+def test_panel_deltas_blocks_match_pallas(kind, dtype, family, cp, rbp, B):
+    """chol_ and lu_panel_deltas_{lanes,wide} at shapes that cross the
+    kernels' 32-column blocks and 32-row tiles, with the tolerances of
+    test_panel_deltas_match_pallas. On the CPU the port runs its plain
+    versions, which chip_smoke.py holds the card's kernels to."""
     lu = kind == "lu"
-    seed = 200 + 10 * LANES_BLOCK_SHAPES.index((cp, rbp, B)) + lu
+    seed = (200 if family == "lanes" else 300) \
+        + 10 * BLOCK_SHAPES[family].index((cp, rbp, B)) + lu
     ins = (_lu_inputs if lu else _chol_inputs)(B, cp, rbp, DTYPES[dtype][0],
                                                seed)
-    ref, got = _run(f"{kind}_panel_deltas_lanes", ins[0], ins[1], ins[2:],
-                    cp, rbp, dtype)
+    ref, got = _run(f"{kind}_panel_deltas_{family}", ins[0], ins[1],
+                    ins[2:], cp, rbp, dtype)
     assert len(got) == (4 if lu else 2)
     for r, g in zip(ref, got):
         assert g.shape == r.shape and g.dtype == r.dtype
