@@ -16,7 +16,8 @@ non-zero):
    library call at the main path's largest call, and each kernel's bound;
 3b. the same for getrf_inv over every call of the 48^3 f32 LU plan (the
    32x32 diagonal blocks of the LU fronts of its PC buckets, built from
-   the assembled Lx and Ux), plus seeded blocks at nb = 16 and 8;
+   the assembled Lx and Ux), plus seeded blocks at nb = 16 and 8 and at
+   nb = 32 scaled by 2^80; its times also per launch at B = 1 and 256;
 3c. the four whole-panel kernels (chol/lu_panel_deltas_lanes/wide) at
    every PC step of the 48^3 plans (395 calls each; the panels taken from
    the assembled arrays), in f32 and f64, against their plain versions,
@@ -57,7 +58,9 @@ non-zero):
 6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
 6b. the same for LU, on the unsymmetric 12^3 matrix, both flat factors;
 6c. the same for both kinds under SPFX_PANEL_KERNEL=lanes, wide and mixed;
-6d. the panel bench, spfx_torch.bench.panels.main() at its full size (2^16
+6d. syrk_gemm_batched against its plain version at seeded shapes that
+   reach both of its paths, f32 and f64; then the panel bench,
+   spfx_torch.bench.panels.main() at its full size (2^16
    tasks): the four strategies' GFLOP/s, its launches (a path of its own),
    the custom kernel's S and G against the einsum strategy, and the times
    of syrk_gemm_batched, its plain version and a torch.bmm pair, with its
@@ -272,43 +275,25 @@ def narrow_potrf_calls(dev, gen):
     return out
 
 
-def getrf_calls(ctx, dev):
-    """(wrel, D) of every getrf_inv call of the LU plan's PC steps: the
-    diagonal blocks of each bucket's LU front, built from the assembled
-    (not yet factored) Lx and Ux."""
-    import torch
-    from spfx_torch.kernels import blocks
-    plan = ctx.plan
-    Lx, Ux = (blocks.assemble(torch.as_tensor(idx, device=dev), v,
-                              plan.storage)
-              for idx, v in zip((plan.assembly_idx, plan.assembly_idx_u),
-                                ctx.entry_values(ctx.A)))
-    out = []
-    for lp in plan.levels:
-        for pb in lp.panels:
-            widths = pb.to_u(dev)[0]
-            B, cp, rbp = widths.shape[0], pb.cp, pb.rbp
-            lo = int(pb.slab_lo[0])
-            bl, bu = (x[lo:lo + B * (cp + rbp) * cp].view(B, cp + rbp, cp)
-                      for x in (Lx, Ux))
-            Mf, _ = blocks.lu_front(bl[:, :cp], bu[:, :cp], widths)
-            for s in range(0, cp, blocks.NB):
-                e = min(s + blocks.NB, cp)
-                wrel = (widths - s).clamp(0, e - s).to(torch.int32)
-                out.append((wrel, Mf[:, s:e, s:e].contiguous()))
-    return out
-
-
 def narrow_getrf_calls(dev, gen):
     """getrf_inv at nb = 16 and 8: seeded diagonally dominant blocks with
-    both triangles filled, wrel covering 0, 1, nb - 1 and nb."""
+    both triangles filled, wrel covering 0, 1, nb - 1 and nb; then the
+    same at nb = 32 scaled by 2^80, beyond the range of the fast division
+    that U^{-1} takes in f32, so that the kernel forms it again with the
+    IEEE division (drawn from a generator of its own, so that the other
+    checks' draws stay as they were)."""
     import torch
     out = []
-    for nb in (16, 8):
-        D = torch.randn(64, nb, nb, generator=gen, device=dev,
+    own = torch.Generator(device=dev)
+    own.manual_seed(80)
+    for nb in (16, 8, 32):
+        g = own if nb == 32 else gen
+        D = torch.randn(64, nb, nb, generator=g, device=dev,
                         dtype=torch.float64)
         D = D + torch.diag_embed(D.abs().sum(2) + 1.0)
-        w = torch.randint(0, nb + 1, (64,), generator=gen, device=dev,
+        if nb == 32:
+            D = D * 2.0 ** 80
+        w = torch.randint(0, nb + 1, (64,), generator=g, device=dev,
                           dtype=torch.int32)
         w[:4] = torch.tensor([0, 1, nb - 1, nb], dtype=torch.int32)
         out.append((w, D.float()))
@@ -745,6 +730,12 @@ def getrf_rows(L, gcalls, dtype: str):
         # lu_factor_ex(pivot=False) cannot be captured in a CUDA graph
         library_ms=time_ms(library, graph=False),
         bound_ms=bms, bound_by=by)
+    # per launch on the first 1 and 256 blocks of that call: a launch's
+    # time is one block's path, whatever the batch
+    for b in (1, 256):
+        if B >= b:
+            wb, Db = wrel[:b].contiguous(), D[:b].contiguous()
+            row[f"ms_b{b}"] = time_ms(lambda: panel.getrf_inv(wb, Db))
     pcd = [(w, d.to(L.dtype)) for w, d in gcalls]
 
     def getrfs():
@@ -1064,6 +1055,48 @@ def chol_small_row(dev, gen):
 # phase 6d: the panel bench
 # --------------------------------------------------------------------------
 
+SYRK_SHAPES = [(3, 64, 64, 32), (133, 64, 64, 32), (5, 70, 33, 40),
+               (7, 1, 1, 1), (4, 128, 200, 17)]  # (batch, n, m, k)
+
+
+def check_syrk_gemm(dev, gen):
+    """syrk_gemm_batched against its plain version at seeded shapes that
+    reach both of its paths (bulk: the bench's item shape, at a batch
+    under and one over the persistent grid's 1-in-3 remainder; general:
+    n > 64, n = m = k = 1, n + m > 128 with an odd k), in f32 and f64.
+    Tolerance 1e-5 (f32) and 1e-13 (f64) of each output's largest entry:
+    k-term dot products summed in other orders. Returns ({dtype: largest
+    |kernel - plain|}, {path: calls})."""
+    import torch
+    from spfx_torch.chol.factorize import matmul_precision
+    from spfx_torch.kernels import syrk_gemm
+    worst, paths = {}, {}
+    with matmul_precision("highest"):
+        for dtype, tol in (("float32", 1e-5), ("float64", 1e-13)):
+            td = getattr(torch, dtype)
+            worst[dtype] = 0.0
+            for batch, n, m, k in SYRK_SHAPES:
+                A = torch.randn(batch, n, k, generator=gen, device=dev,
+                                dtype=td)
+                B = torch.randn(batch, m, k, generator=gen, device=dev,
+                                dtype=td)
+                p = syrk_gemm.path(n, m, k, A.element_size(), A.data_ptr(),
+                                   B.data_ptr())
+                paths[p] = paths.get(p, 0) + 1
+                for got, ref in zip(syrk_gemm.syrk_gemm_batched(A, B),
+                                    syrk_gemm.syrk_gemm_batched_plain(A, B)):
+                    e = max_diff(got, ref)
+                    if not e <= tol * float(ref.abs().max()):
+                        fail(f"syrk_gemm_batched {dtype} {p} path at "
+                             f"{(batch, n, m, k)}: {e:.3e} from its plain "
+                             "version")
+                    worst[dtype] = max(worst[dtype], e)
+    if sorted(paths) != ["bulk", "general"]:
+        fail(f"syrk_gemm_batched checks reached the paths {paths}")
+    torch.cuda.synchronize()
+    return worst, paths
+
+
 def panel_bench(dev):
     """spfx_torch.bench.panels.main() at its full size, its launches
     (one warm and REPS timed calls of syrk_gemm_batched, nothing else),
@@ -1303,6 +1336,7 @@ def main(argv) -> int:
                      "w"))
     import spfx_torch
     from spfx_torch import Config
+    from spfx_torch.bench.kernel_probe import plan_getrf_calls
     from spfx_torch.io import generate
     from spfx_torch.kernels import _cuda
 
@@ -1336,7 +1370,7 @@ def main(argv) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     pcalls = potrf_calls(ctx, dev)
-    lcalls = getrf_calls(lctx, dev)
+    lcalls = plan_getrf_calls(lctx, dev)
     errs = {}
     rows = None
     for dtype in ("float32", "float64"):
@@ -1488,12 +1522,16 @@ def main(argv) -> int:
                 fail(f"card and CPU factors ({name}{tag}) differ by "
                      f"{rel:.3e}")
 
-    # 6d. the panel bench, its launches a path of its own
+    # 6d. syrk_gemm_batched on both of its paths, then the panel bench,
+    # its launches a path of its own
     t0 = time.perf_counter()
-    _, paths["panels"], rows["syrk_gemm_batched"], errs[
-        ("syrk_gemm_batched", "float32")] = panel_bench(dev)
-    log(f"[panels] custom kernel vs einsum max abs err "
-        f"{errs[('syrk_gemm_batched', 'float32')]:.3e}, launches "
+    serr, spaths = check_syrk_gemm(dev, gen)
+    log(f"[kernels] syrk_gemm_batched at (batch, n, m, k) = "
+        + ", ".join(map(str, SYRK_SHAPES)) + f", calls by path {spaths}, "
+        "max abs err " + ", ".join(f"{d} {v:.3e}" for d, v in serr.items()))
+    _, paths["panels"], rows["syrk_gemm_batched"], berr = panel_bench(dev)
+    errs[("syrk_gemm_batched", "float32")] = max(berr, serr["float32"])
+    log(f"[panels] custom kernel vs einsum max abs err {berr:.3e}, launches "
         f"{paths['panels']['syrk_gemm_batched']} "
         f"({time.perf_counter() - t0:.1f} s); f32 timing "
         + json.dumps(rows["syrk_gemm_batched"]))
@@ -1535,7 +1573,8 @@ def main(argv) -> int:
             "path_bound_ms": r.get("path_bound_ms"),
             "library_path_ms": r.get("library_path_ms"),
             "library_device_ms": r.get("library_device_ms"),
-            "library_path_device_ms": r.get("library_path_device_ms")})
+            "library_path_device_ms": r.get("library_path_device_ms"),
+            "ms_b1": r.get("ms_b1"), "ms_b256": r.get("ms_b256")})
     for k in kernels:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

@@ -32,11 +32,8 @@ from __future__ import annotations
 
 import ast
 import ctypes
-import os
 import statistics
-import subprocess
 import sys
-import tempfile
 
 import numpy as np
 import torch
@@ -196,10 +193,7 @@ def profile() -> bool:
 
 
 def variants(spec=None, shapes=None, family="lanes") -> bool:
-    csrc = os.path.join(os.path.dirname(_cuda.__file__), "csrc")
-    top = f"panel_{family}.cu"
-    sources = {f: open(os.path.join(csrc, f)).read()
-               for f in (top, "panel_blocks.cuh")}
+    from spfx_torch.bench.kernel_probe import build
     todo = CUTS if spec in (None, "-") else \
         ast.literal_eval(open(spec).read())
     if shapes == "plan":
@@ -208,45 +202,18 @@ def variants(spec=None, shapes=None, family="lanes") -> bool:
         shapes = PROFILE_SHAPES
     else:
         shapes = ast.literal_eval(shapes)
-    tmp = tempfile.mkdtemp()
-    procs = []
-    for k, (name, edits) in enumerate(todo):
-        texts = dict(sources)
-        for old, new in edits:
-            hits = [f for f, t in texts.items() if old in t]
-            if not hits:
-                raise ValueError(f"variant {name!r}: text not found: {old!r}")
-            for f in hits:
-                texts[f] = texts[f].replace(old, new)
-        # each variant in a directory of its own, its header beside it
-        vdir = os.path.join(tmp, f"v{k}")
-        os.makedirs(vdir)
-        for f, t in texts.items():
-            with open(os.path.join(vdir, f), "w") as fh:
-                fh.write(t)
-        cu = os.path.join(vdir, top)
-        procs.append((name, os.path.join(tmp, f"v{k}.so"), subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o",
-             os.path.join(tmp, f"v{k}.so"), cu], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
     libs = []
-    for name, so, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"variant {name!r} does not build:\n{out}")
-        fn = getattr(ctypes.CDLL(so), f"spfx_lu_panel_{family}_f32")
+    for name, lib in build(f"panel_{family}.cu", todo):
+        fn = getattr(lib, f"spfx_lu_panel_{family}_f32")
         fn.argtypes = _cuda._PANEL_LU
         fn.restype = ctypes.c_int
-        libs.append((name, fn, " ".join(line.split(":")[-1].strip()
-                                        for line in out.splitlines()
-                                        if "registers" in line)))
-        print(f"{name}: {libs[-1][2]}", flush=True)
+        libs.append((name, fn))
     for B, cp, rbp, *counts in shapes:
         w, nb, ins = on_card(B, cp, rbp, torch.float32, *counts,
                              lanes=family == "lanes")
         outs = [torch.empty_like(t) for t in ins]
         ws = torch.empty((B, cp + 64, -(-cp // 32) * 32), device=w.device)
-        for name, fn, _ in libs:
+        for name, fn in libs:
             def call(fn=fn):
                 rc = fn(w.data_ptr(), nb.data_ptr(),
                         *(t.data_ptr() for t in (*ins, *outs, ws)), B, cp,

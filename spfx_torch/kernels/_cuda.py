@@ -64,8 +64,9 @@ _SIGNATURES = {
                                                  _c_ll, _vp, _vp]
                    for t in ("f32", "f64")},
     # (A, B, S, G, batch, n, m, k, stream)
-    "syrk_gemm": {f"spfx_syrk_gemm_batched_{t}": [_vp] * 4 + [_c_int] * 4
-                  + [_vp] for t in ("f32", "f64")},
+    "syrk_gemm": {f"spfx_syrk_gemm_{p}_{t}": [_vp] * 4 + [_c_int] * 4
+                  + [_vp] for p in ("general", "bulk")
+                  for t in ("f32", "f64")},
     # (D, L, batch, c, stream)
     "chol_small": {f"spfx_cholesky_small_batched_{t}": [_vp, _vp, _c_int,
                                                         _c_int, _vp]

@@ -11,10 +11,12 @@
 // A live row >= Rs is a plan error and traps (the host checks the plan
 // once, and the CPU wrapper raises).
 //
-// What bounds it on the H100: memory. Each live row of E is read once and
-// its slab row read and written once, 3 * csp * itemsize bytes a live row,
-// plus the (RE,) int32 table; one subtraction a value, far under the
-// card's ridge, so the floor is those bytes over 3.35 TB/s.
+// What bounds it on the H100: memory. Each live row of E is read once,
+// csp * itemsize bytes, and each distinct slab row that the live rows name
+// is read and written once, 2 * csp * itemsize bytes (rows of E that share
+// a slab row share its traffic), plus the (RE,) int32 table; one
+// subtraction a value, far under the card's ridge, so the floor is those
+// bytes over 3.35 TB/s.
 //
 // What the design does about it: one thread block per (row of E, chunk of
 // up to 256 columns); the block reads its row's target once and a dropped

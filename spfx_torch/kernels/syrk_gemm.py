@@ -8,8 +8,12 @@ returns (S, G) in A's dtype, S = A A^T (batch, n, n) and G = B A^T
 batch % slab == 0) has no counterpart: the card has no VMEM model.
 
 A CPU tensor takes the plain PyTorch version (``syrk_gemm_batched_plain``,
-the two einsums); a CUDA tensor launches the kernel of csrc/syrk_gemm.cu
-(full float32 products, no TF32) or raises.
+the two einsums); a CUDA tensor launches a kernel of csrc/syrk_gemm.cu
+(full float32 products, no TF32) or raises. That file has two paths, and
+``path`` chooses between them from the shape and the alignment: the bulk
+path streams the batch through persistent thread blocks with bulk copies
+(n <= 64, n + m <= 128, k <= 32, n and k multiples of a 16-byte vector,
+A and B 16-byte aligned); the general path takes every other shape.
 """
 
 from __future__ import annotations
@@ -41,6 +45,20 @@ def _check(A, B) -> None:
         raise ValueError(f"syrk_gemm_batched: unsupported device {A.device}")
 
 
+BULK_ROWS, BULK_COLS, BULK_K = 128, 64, 32     # the bulk path's largest
+
+
+def path(n: int, m: int, k: int, itemsize: int, *ptrs: int) -> str:
+    """"bulk" if the bulk path takes (n, m, k) in a type of ``itemsize``
+    bytes with A and B at addresses ``ptrs``, else "general"."""
+    vec = 16 // itemsize
+    if (n <= BULK_COLS and n + m <= BULK_ROWS and k <= BULK_K
+            and n % vec == 0 and k % vec == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "bulk"
+    return "general"
+
+
 def syrk_gemm_batched_plain(A, B):
     """Plain PyTorch version: the two einsums of the JAX reference."""
     return (torch.einsum("bnk,bmk->bnm", A, A),
@@ -56,7 +74,8 @@ def syrk_gemm_batched(A, B):
     m = B.shape[1]
     S = A.new_empty((batch, n, n))
     G = A.new_empty((batch, m, n))
-    fn = getattr(_cuda.lib("syrk_gemm"), "spfx_syrk_gemm_batched_"
+    p = path(n, m, k, A.element_size(), A.data_ptr(), B.data_ptr())
+    fn = getattr(_cuda.lib("syrk_gemm"), f"spfx_syrk_gemm_{p}_"
                  + ("f32" if A.dtype == torch.float32 else "f64"))
     rc = fn(A.data_ptr(), B.data_ptr(), S.data_ptr(), G.data_ptr(), batch, n,
             m, k, _cuda.stream_ptr(A.device))

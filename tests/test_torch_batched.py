@@ -27,7 +27,10 @@ DTYPES = {"float32": (np.float32, torch.float32),
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-13)])
 @pytest.mark.parametrize("batch,n,m,k,slab", [(128, 16, 16, 8, 32),
-                                              (64, 16, 12, 8, 32)])
+                                              (64, 16, 12, 8, 32),
+                                              (16, 64, 64, 32, 8),
+                                              (8, 70, 33, 40, 4),
+                                              (4, 1, 1, 1, 2)])
 def test_syrk_gemm_matches_pallas(batch, n, m, k, slab, dtype, tol):
     """Relative to each output's largest entry: both sides are k-term dot
     products summed in their own orders."""
@@ -44,6 +47,30 @@ def test_syrk_gemm_matches_pallas(batch, n, m, k, slab, dtype, tol):
     for got, ref in ((S, Sj), (G, Gj)):
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                    atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("n,m,k,itemsize,ptrs,want", [
+    (64, 64, 32, 4, (0, 256), "bulk"),       # the panel bench's shape
+    (64, 64, 32, 8, (0, 256), "bulk"),       # f64 too
+    (4, 1, 4, 4, (16, 32), "bulk"),          # the smallest f32 item
+    (2, 126, 2, 8, (16, 32), "bulk"),        # n + m = 128, f64 vectors
+    (64, 64, 30, 8, (0, 0), "bulk"),         # k a multiple of two f64
+    (64, 64, 30, 4, (0, 0), "general"),      # ... but not of four f32
+    (62, 2, 32, 4, (0, 0), "general"),       # n not a multiple of four
+    (68, 4, 32, 4, (0, 0), "general"),       # n > 64
+    (64, 65, 32, 4, (0, 0), "general"),      # n + m > 128
+    (64, 64, 36, 4, (0, 0), "general"),      # k > 32
+    (64, 64, 32, 4, (4, 0), "general"),      # A not 16-byte aligned
+    (64, 64, 32, 4, (0, 8), "general"),      # B not 16-byte aligned
+    (70, 33, 40, 4, (0, 0), "general"),
+    (1, 1, 1, 8, (0, 0), "general"),
+    (128, 200, 17, 4, (0, 0), "general"),
+])
+def test_syrk_gemm_path(n, m, k, itemsize, ptrs, want):
+    """Which shapes, types and alignments take the bulk path (streamed by
+    bulk copies: n <= 64, n + m <= 128, k <= 32, n and k multiples of a
+    16-byte vector, A and B 16-byte aligned) and which the general one."""
+    assert syrk_gemm.path(n, m, k, itemsize, *ptrs) == want
 
 
 def test_syrk_gemm_rejects_bad_input():

@@ -5,6 +5,7 @@ interpret mode, the blocked panel path, and one real UT update step; and
 the kernel build's staleness test on temporary files."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -149,6 +150,24 @@ def test_build_staleness_counts_headers(tmp_path, newest, want):
     else:
         os.utime(files[newest], (2000, 2000))
     assert _cuda.stale(str(out), str(src), [str(h) for h in headers]) is want
+
+
+@pytest.mark.parametrize("name", sorted(_cuda._SIGNATURES))
+def test_entry_points_match_signatures(name):
+    """The extern "C" functions of csrc/<name>.cu are the ones _cuda binds,
+    each with as many parameters as its ctypes signature has types."""
+    src = open(os.path.join(_cuda._CSRC, f"{name}.cu")).read()
+    found = {m.group(1): len(m.group(2).split(","))
+             for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert found == {fn: len(sig)
+                     for fn, sig in _cuda._SIGNATURES[name].items()}
+
+
+def test_every_source_is_bound():
+    """Every csrc/*.cu has its signatures in _cuda, so lib() can load it."""
+    names = {os.path.splitext(f)[0] for f in os.listdir(_cuda._CSRC)
+             if f.endswith(".cu")}
+    assert names == set(_cuda._SIGNATURES)
 
 
 # --------------------------------------------------------------------------

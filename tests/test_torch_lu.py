@@ -67,16 +67,22 @@ def _lu_blocks(B, nb, seed):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-10), ("float32", 1e-5)])
-@pytest.mark.parametrize("nb", [32, 16])
-def test_getrf_inv_matches_pallas(dtype, tol, nb):
+@pytest.mark.parametrize("nb,every", [(32, False), (16, False), (32, True)],
+                         ids=["32", "16", "32-every-width"])
+def test_getrf_inv_matches_pallas(dtype, tol, nb, every):
     """Plain getrf_inv vs getrf_inv_lanes (interpret mode), transposed to
-    the TPU's (nb, nb, B) layout; B = 8, a power of two (lanes_slab cuts
-    other batch sizes). f32 tolerance, relative to each output's largest
-    entry: both are float32 recurrences of nb steps summed in other
-    orders."""
+    the TPU's (nb, nb, B) layout; B a power of two (lanes_slab cuts other
+    batch sizes): 8 blocks, or 64 holding every width 0..nb and seeded
+    ones. f32 tolerance, relative to each output's largest entry: both are
+    float32 recurrences of nb steps summed in other orders."""
     npd, _ = DTYPES[dtype]
-    D = _lu_blocks(8, nb, 21).astype(npd)
-    w = np.array([0, 1, nb - 1, nb, 5, nb // 2, nb, 3], np.int32)
+    if every:
+        D = _lu_blocks(64, nb, 23).astype(npd)
+        w = np.concatenate([np.arange(nb + 1), np.random.default_rng(23)
+                            .integers(0, nb + 1, 63 - nb)]).astype(np.int32)
+    else:
+        D = _lu_blocks(8, nb, 21).astype(npd)
+        w = np.array([0, 1, nb - 1, nb, 5, nb // 2, nb, 3], np.int32)
     outs = pallas_blocks.getrf_inv_lanes(
         jnp.asarray(w), jnp.asarray(np.transpose(D, (1, 2, 0))))
     mine = panel.getrf_inv(torch.from_numpy(w), torch.from_numpy(D))
