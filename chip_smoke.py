@@ -40,8 +40,9 @@ non-zero):
    and f64, against the plain version, with L L^T = D and exact zeros above
    the diagonal; times against torch.linalg.cholesky_ex at (65,536, 32);
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
-   default Config, launch counts against the plan (window_gather2 and
-   extend_add_rows once per UT step and factor array), factorization
+   default Config, launch counts against the plan (window_gather2 once per
+   UT step and factor array, extend_add_rows once per UT step: LU's twin
+   entry takes both arrays), factorization
    times, GFLOP/s, peak memory, and the refined solve's scaled residual
    (<= 1e-12);
 4b. LU main path: spfx_torch.LU(laplacian_3d(48)) with the default Config,
@@ -235,29 +236,6 @@ def check_gathers(plan, dtype: str, dev, gen):
     return L, calls, {"window_gather2": err2, "window_gather": err1}
 
 
-def potrf_calls(ctx, dev):
-    """(wrel, D) of every potrf_inv call of the plan's PC steps, the
-    diagonal blocks taken from the assembled (not yet factored) matrix."""
-    import torch
-    from spfx_torch.kernels import blocks
-    plan = ctx.plan
-    L = blocks.assemble(
-        torch.as_tensor(plan.assembly_idx, device=dev),
-        ctx.entry_values(ctx.A), plan.storage)
-    out = []
-    for lp in plan.levels:
-        for pb in lp.panels:
-            widths = pb.to_u(dev)[0]
-            B, cp, rbp = widths.shape[0], pb.cp, pb.rbp
-            lo = int(pb.slab_lo[0])
-            blk = L[lo:lo + B * (cp + rbp) * cp].view(B, cp + rbp, cp)
-            for s in range(0, cp, blocks.NB):
-                e = min(s + blocks.NB, cp)
-                wrel = (widths - s).clamp(0, e - s).to(torch.int32)
-                out.append((wrel, blk[:, s:e, s:e].contiguous()))
-    return out
-
-
 def narrow_potrf_calls(dev, gen):
     """potrf_inv at nb = 16 and 8 (panels narrower than the default
     stride_min), seeded SPD blocks with junk above the diagonal."""
@@ -273,6 +251,28 @@ def narrow_potrf_calls(dev, gen):
                           dtype=torch.int32)
         out.append((w, D.float()))
     return out
+
+
+def edge_potrf_calls(dev):
+    """Two seeded potrf_inv calls at nb = 32 (drawn from a generator of
+    their own, so that the other checks' draws stay as they were): blocks
+    of widths 0, 1, 7, 8, 9, 31 and 32, so that a launch's widest block is
+    not its first and the kernel's early stops fall before, on and after a
+    multiple of 8; and one ill-conditioned block S A S, A = X X^T + 32 I,
+    S = diag(2^(-44 i / 31)), whose L^{-1} entries pass 2^40 (its rows
+    and columns span 2^44 in scale, so ``check_potrf`` holds it by row and
+    column: ``local``)."""
+    import torch
+    own = torch.Generator(device=dev)
+    own.manual_seed(32)
+    f64 = dict(device=dev, dtype=torch.float64)
+    X = torch.randn(8, 32, 32, generator=own, **f64)
+    D = X @ X.transpose(1, 2) + 32 * torch.eye(32, **f64)
+    junk = torch.triu(torch.full((32, 32), 1e3, **f64), 1)
+    S = torch.diag(2.0 ** (-44.0 * torch.arange(32, **f64) / 31))
+    w = torch.tensor([0, 1, 7, 8, 9, 31, 32], device=dev, dtype=torch.int32)
+    return [(w, (D[:7] + junk).float()),
+            (w[-1:].contiguous(), (S @ D[7:] @ S + junk).float())]
 
 
 def narrow_getrf_calls(dev, gen):
@@ -749,35 +749,54 @@ def getrf_rows(L, gcalls, dtype: str):
     return row
 
 
-def check_potrf(calls, dtype: str):
+def check_potrf(calls, dtype: str, local: bool = False):
     """Every potrf_inv call against the plain version, plus the
     reconstructions L L^T = D and L^{-1} L = I on the live part.
     Tolerance: f32 1e-4, f64 1e-12, relative to the largest entry; the two
-    sides take the same recurrence with sums in other orders."""
+    sides take the same recurrence with sums in other orders. With
+    ``local`` (blocks whose rows differ in scale by orders of magnitude),
+    the same tolerances hold each row of L and each column of L^{-1}
+    against the largest plain entry of that row or column, and each entry
+    of the reconstructions against the same entry of |L| |L|^T and
+    |L^{-1}| |L|."""
     import torch
     from spfx_torch.kernels import panel
     td = getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 1e-12
+    rtol = 1e-5 if dtype == "float32" else 1e-12
     worst = 0.0
     for wrel, D in calls:
         D = D.to(td)
         L, Li = panel.potrf_inv(wrel, D)
         Lp, Lip = panel.potrf_inv_plain(wrel, D)
-        err = max(float((L - Lp).abs().max()), float((Li - Lip).abs().max()))
+        dl, di = (L - Lp).abs(), (Li - Lip).abs()
+        err = max(float(dl.max()), float(di.max()))
         scale = max(float(Lp.abs().max()), float(Lip.abs().max()), 1.0)
-        if not err <= tol * scale:
-            fail(f"potrf_inv {dtype}: {err:.3e} from its plain version")
+        if local:
+            ok = bool((dl <= tol * Lp.abs().amax(2, keepdim=True)).all()
+                      and (di <= tol * Lip.abs().amax(1, keepdim=True)).all())
+        else:
+            ok = err <= tol * scale
+        if not ok:
+            fail(f"potrf_inv {dtype}: {err:.3e} from its plain version"
+                 + (" (by row of L, column of L^-1)" if local else ""))
         worst = max(worst, err)
         Dm, cm = panel.masked_block(wrel, D)
         Dm = (Dm + Dm.tril(-1).transpose(1, 2)).double()
         live = (cm[:, :, None] & cm[:, None, :]).double()
         pad = torch.diag_embed((~cm).double())
-        rec = (L.double() @ L.double().transpose(1, 2) - Dm) * live
-        inv = Li.double() @ (L.double() + pad) - torch.eye(
+        Ld, Lid = L.double(), Li.double()
+        rec = (Ld @ Ld.transpose(1, 2) - Dm) * live
+        inv = Lid @ (Ld + pad) - torch.eye(
             D.shape[1], dtype=torch.float64, device=D.device)
-        rtol = 1e-5 if dtype == "float32" else 1e-12
-        if not (float(rec.abs().max()) <= rtol * float(Dm.abs().max())
-                and float(inv.abs().max()) <= rtol * scale):
+        if local:
+            ok = bool((rec.abs() <= rtol * (Ld.abs() @ Ld.abs().transpose(
+                1, 2))).all() and (inv.abs() <= rtol * (
+                    Lid.abs() @ (Ld + pad).abs())).all())
+        else:
+            ok = (float(rec.abs().max()) <= rtol * float(Dm.abs().max())
+                  and float(inv.abs().max()) <= rtol * scale)
+        if not ok:
             fail(f"potrf_inv {dtype}: reconstruction off")
     torch.cuda.synchronize()
     return worst
@@ -862,63 +881,98 @@ def path_kernel_ms(L, gcalls, pcalls, dtype: str):
 # phase 3d: extend_add_rows at every UT step
 # --------------------------------------------------------------------------
 
-def extend_add_calls(plan, dev):
-    """(slab_lo, srows, csp, rows) of every UT step of the plan: the
-    step's slab of the flat factor and its row table (one entry per row of
-    the step's E)."""
-    return [(int(ub.slab_lo[0]), ub.slab_rows, ub.csp, ub.rows_to(dev))
-            for lp in plan.levels for ub in lp.updates]
+def extend_call(slabs, rows, es) -> None:
+    """extend_add_rows on one slab, extend_add_rows2 on two."""
+    from spfx_torch.kernels import extend_add
+    if len(slabs) == 1:
+        extend_add.extend_add_rows(slabs[0], rows, es[0])
+    else:
+        extend_add.extend_add_rows2(slabs[0], slabs[1], rows, es[0], es[1])
 
 
-def extend_add_bytes(rows, csp: int, item: int) -> float:
-    """Bytes that one extend_add_rows call must move: each live row of E
-    read once, each distinct slab row it names read and written once (rows
-    of E that share a slab row share its traffic), plus the table."""
-    import torch
-    live = rows[rows >= 0]
-    return float((live.numel() + 2 * torch.unique(live).numel()) * csp * item
-                 + 4 * rows.shape[0])
-
-
-def check_extend_add(L, calls, dtype: str, gen):
-    """Every call against the plain version on the card, E seeded in the
-    step's shape, the kernel in place on the step's slab view of L.
-    Tolerance: f32 1e-6, f64 1e-14 of the slab's largest entry (repeated
-    rows summed in another order: atomics on the card). Then two
-    adversarial calls at the largest step's shape: every row on one slab
-    row (integer values, so any order gives the plain version's bits) and
-    every row dropped (the slab untouched, bit for bit). Returns the
+def check_extend_add(L, calls, dtype: str, gen, U=None):
+    """Every call of extend_add_rows (given ``U``, a second flat array of
+    L's size: of extend_add_rows2 on the step's slab views of L and U)
+    against the plain version on each slab, E seeded in the step's shape,
+    the kernel in place on the step's slab views. Tolerance: f32 1e-6, f64
+    1e-14 of the slab's largest entry (repeated rows summed in another
+    order: atomics on the card). Then the adversarial calls of
+    ``check_extend_edges`` at the largest step's shape. Returns the
     largest |kernel - plain|."""
     import torch
     from spfx_torch.kernels import extend_add
+    arrays = [L] if U is None else [L, U]
+    what = "extend_add_rows" if U is None else "extend_add_rows2"
     tol = 1e-6 if dtype == "float32" else 1e-14
     worst = 0.0
     for lo, srows, csp, rows in calls:
-        slab = L[lo:lo + srows * csp].view(srows, csp)
-        E = torch.randn((rows.shape[0], csp), generator=gen,
-                        device=L.device, dtype=L.dtype)
-        ref = extend_add.extend_add_rows_plain(slab.clone(), rows, E)
-        extend_add.extend_add_rows(slab, rows, E)
-        err = max_diff(slab, ref)
-        if not err <= tol * float(ref.abs().max()):
-            fail(f"extend_add_rows {dtype} (srows {srows}, csp {csp}, "
-                 f"{rows.shape[0]} rows): {err:.3e} from its plain version")
-        worst = max(worst, err)
+        ss = [x[lo:lo + srows * csp].view(srows, csp) for x in arrays]
+        es = [torch.randn((rows.shape[0], csp), generator=gen,
+                          device=L.device, dtype=L.dtype) for _ in arrays]
+        refs = [extend_add.extend_add_rows_plain(s.clone(), rows, e)
+                for s, e in zip(ss, es)]
+        extend_call(ss, rows, es)
+        for got, ref in zip(ss, refs):
+            err = max_diff(got, ref)
+            if not err <= tol * float(ref.abs().max()):
+                fail(f"{what} {dtype} (srows {srows}, csp {csp}, "
+                     f"{rows.shape[0]} rows): {err:.3e} from the plain "
+                     "version")
+            worst = max(worst, err)
     lo, srows, csp, rows = max(calls, key=lambda c: c[3].shape[0] * c[2])
-    slab = torch.round(4 * L[lo:lo + srows * csp].view(srows, csp))
-    E = torch.round(4 * torch.randn((rows.shape[0], csp), generator=gen,
-                                    device=L.device, dtype=L.dtype))
-    one = torch.full_like(rows, srows // 2)
-    ref = extend_add.extend_add_rows_plain(slab.clone(), one, E)
-    if not torch.equal(extend_add.extend_add_rows(slab, one, E), ref):
-        fail(f"extend_add_rows {dtype}: {rows.shape[0]} rows on one slab "
-             "row differ from the plain version")
-    before = slab.clone()
-    extend_add.extend_add_rows(slab, torch.full_like(rows, -1), E)
-    if not torch.equal(slab, before):
-        fail(f"extend_add_rows {dtype}: dropped rows changed the slab")
+    check_extend_edges([x[lo:lo + srows * csp].view(srows, csp)
+                        for x in arrays], rows, dtype, gen)
     torch.cuda.synchronize()
     return worst
+
+
+def check_extend_edges(slabs, rows, dtype: str, gen):
+    """Adversarial calls of extend_add_rows on one slab (of
+    extend_add_rows2 on two of the same shape) at one step's shape,
+    integer values throughout, so that any order of the atomics gives the
+    plain version's bits: every row on one slab row; every row dropped
+    (the slabs untouched); and, on seeded tables with repeated and dropped
+    rows, two calls that take the kernel's single-value path, csp = 33 and
+    a slab that starts one value past a 16-byte boundary."""
+    import torch
+    from spfx_torch.kernels import extend_add
+    slab = slabs[0]
+    what = "extend_add_rows" if len(slabs) == 1 else "extend_add_rows2"
+
+    def same(ss, r, es, label):
+        refs = [extend_add.extend_add_rows_plain(s.clone(), r, e)
+                for s, e in zip(ss, es)]
+        extend_call(ss, r, es)
+        if not all(torch.equal(s, ref) for s, ref in zip(ss, refs)):
+            fail(f"{what} {dtype}: {label} differ from the plain version")
+
+    dev = slab.device
+    ss = [torch.round(4 * s) for s in slabs]
+    es = [torch.round(4 * torch.randn((rows.shape[0], slab.shape[1]),
+                                      generator=gen, device=dev,
+                                      dtype=slab.dtype)) for _ in slabs]
+    same(ss, torch.full_like(rows, slab.shape[0] // 2), es,
+         f"{rows.shape[0]} rows on one slab row")
+    before = [s.clone() for s in ss]
+    extend_call(ss, torch.full_like(rows, -1), es)
+    if not all(torch.equal(s, b) for s, b in zip(ss, before)):
+        fail(f"{what} {dtype}: dropped rows changed the slab")
+    Rs, RE = 100, 1000
+    r = torch.randint(-20, Rs, (RE,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    for csp, off in ((33, 0), (32, 1)):
+        flats = [torch.round(4 * torch.randn(Rs * csp + off, generator=gen,
+                                             device=dev, dtype=slab.dtype))
+                 for _ in slabs]
+        ss = [f[off:].view(Rs, csp) for f in flats]
+        es = [torch.round(4 * torch.randn((RE, csp), generator=gen,
+                                          device=dev, dtype=slab.dtype))
+              for _ in slabs]
+        ptrs = [t.data_ptr() for t in ss + es]
+        if extend_add.vector_path(csp, slab.element_size(), ptrs):
+            fail(f"{what} {dtype}: csp {csp}, offset {off} takes the "
+                 "16-byte path")
+        same(ss, r, es, f"csp {csp}, offset {off} (single values)")
 
 
 def rotating(fn, inputs):
@@ -929,15 +983,19 @@ def rotating(fn, inputs):
     return lambda: fn(*next(it))
 
 
-def extend_add_rows_row(L, calls, dtype: str, gen):
+def extend_add_rows_row(L, calls, dtype: str, gen, lu):
     """Times (kernel, plain, library: the masked index_add_ it replaces)
     and bound at the path's largest call by bytes, and of all of the path's
-    calls in one graph (their E views of one seeded buffer). The largest
+    calls in one graph (their E views of one seeded buffer); the same for
+    the LU path's extend_add_rows2 calls, ``lu`` = (Lx, Ux, calls), each
+    bounded by twice one call's bytes less one read of the row table
+    (``lu_path_ms``, ``lu_path_bound_ms``). The largest
     call's slab and E fit in the 50 MB L2 cache, so its calls rotate over
     copies of them (slab, E and the library's masked E) that together
     exceed twice the L2: each call meets its inputs in device memory, as
     the byte bound assumes."""
     import torch
+    from spfx_torch.bench.kernel_probe import extend_add_bytes
     from spfx_torch.kernels import extend_add
     item = L.element_size()
     lo, srows, csp, rows = max(calls, key=lambda c: extend_add_bytes(
@@ -980,6 +1038,25 @@ def extend_add_rows_row(L, calls, dtype: str, gen):
     row["path_bound_ms"] = bound(sum(extend_add_bytes(r, cs, item)
                                      for _, _, cs, r in calls), 0.0,
                                  dtype)[0]
+    Lx, Ux, lcalls = lu
+    bufs = [torch.randn(max(c[3].shape[0] * c[2] for c in lcalls),
+                        generator=gen, device=L.device, dtype=L.dtype)
+            for _ in range(2)]
+    lpins = [(Lx[lo:lo + sr * cs].view(sr, cs),
+              Ux[lo:lo + sr * cs].view(sr, cs), r,
+              *(b[:r.shape[0] * cs].view(-1, cs) for b in bufs))
+             for lo, sr, cs, r in lcalls]
+
+    def lu_path():
+        for sl, su, r, el, eu in lpins:
+            extend_add.extend_add_rows2(sl, su, r, el, eu)
+
+    row["lu_path_ms"] = time_ms(lu_path, reps=1, rounds=3)
+    # each slab's live rows of E and distinct targets, the table once
+    row["lu_path_bound_ms"] = bound(sum(2 * extend_add_bytes(r, cs, item)
+                                        - 4 * r.shape[0]
+                                        for _, _, cs, r in lcalls), 0.0,
+                                    dtype)[0]
     return row
 
 
@@ -1156,18 +1233,20 @@ def is_lu(ctx) -> bool:
 
 def predicted_launches(ctx) -> dict:
     """Launches of one factorization under the SPFX_PANEL_KERNEL mode set
-    now: one window_gather2 and one extend_add_rows per UT step and factor
-    array; per PC step either one launch of its route's whole-panel kernel
-    or, on the blocked route, one diagonal-block kernel per 32 columns
-    (getrf_inv for LU, potrf_inv for Cholesky)."""
+    now: one window_gather2 per UT step and factor array, one
+    extend_add_rows per UT step (LU's twin takes both arrays); per PC
+    step either one launch of its route's whole-panel kernel or, on the
+    blocked route, one diagonal-block kernel per 32 columns (getrf_inv for
+    LU, potrf_inv for Cholesky)."""
     from spfx_torch.kernels import _cuda, route
     plan = ctx.plan
     lu = is_lu(ctx)
     mode = route.panel_mode()
     item = 4 if ctx.config.dtype == "float32" else 8
     want = dict.fromkeys(_cuda.launch_counts(), 0)
-    want["window_gather2"] = want["extend_add_rows"] = sum(
-        len(lp.updates) for lp in plan.levels) * (2 if lu else 1)
+    steps = sum(len(lp.updates) for lp in plan.levels)
+    want["window_gather2"] = steps * (2 if lu else 1)
+    want["extend_add_rows"] = steps
     for lp in plan.levels:
         for pb in lp.panels:
             r = route.route_panel(pb.cp, pb.rbp, len(pb.widths), item, lu,
@@ -1280,7 +1359,7 @@ def profile_pass(ctx, A, name: str) -> float:
         torch.cuda.synchronize()
     events = prof.key_averages()
     device_ms = cuda_self_ms(events)
-    table = events.table(sort_by="cuda_time_total", row_limit=25)
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
     with open(os.path.join(ROOT, "chiprun_out", f"{name}.txt"), "w") as fh:
         fh.write(table)
     log(f"[profile] {name}: device time {device_ms:.3f} ms (kernel table "
@@ -1336,7 +1415,9 @@ def main(argv) -> int:
                      "w"))
     import spfx_torch
     from spfx_torch import Config
-    from spfx_torch.bench.kernel_probe import plan_getrf_calls
+    from spfx_torch.bench.kernel_probe import (plan_extend_calls,
+                                               plan_getrf_calls,
+                                               plan_potrf_calls)
     from spfx_torch.io import generate
     from spfx_torch.kernels import _cuda
 
@@ -1369,7 +1450,7 @@ def main(argv) -> int:
         f"{lctx.plan_time:.2f} s " + json.dumps(plan_summary(lctx)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    pcalls = potrf_calls(ctx, dev)
+    pcalls = plan_potrf_calls(ctx, dev)
     lcalls = plan_getrf_calls(lctx, dev)
     errs = {}
     rows = None
@@ -1379,6 +1460,9 @@ def main(argv) -> int:
         errs.update({(k, dtype): v for k, v in gerr.items()})
         errs[("potrf_inv", dtype)] = check_potrf(pcalls, dtype)
         check_potrf(narrow_potrf_calls(dev, gen), dtype)
+        mixed, graded = edge_potrf_calls(dev)
+        check_potrf([mixed], dtype)
+        check_potrf([graded], dtype, local=True)
         errs[("getrf_inv", dtype)] = check_getrf(lcalls, dtype)
         check_getrf(narrow_getrf_calls(dev, gen), dtype)
         log(f"[kernels] {dtype}: {len(gcalls)} window_gather2 calls "
@@ -1426,23 +1510,29 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
 
     # 3d. extend_add_rows at every UT step of the 48^3 Cholesky plan
-    ecalls = extend_add_calls(ctx.plan, dev)
+    # and extend_add_rows2 at every UT step of the 48^3 LU plan
+    ecalls = plan_extend_calls(ctx.plan, dev)
+    lecalls = plan_extend_calls(lctx.plan, dev)
     for dtype in ("float32", "float64"):
         t0 = time.perf_counter()
         L = torch.randn(ctx.plan.storage, generator=gen, device=dev,
                         dtype=getattr(torch, dtype))
-        errs[("extend_add_rows", dtype)] = check_extend_add(L, ecalls, dtype,
-                                                            gen)
+        err = check_extend_add(L, ecalls, dtype, gen)
+        Lx, Ux = (torch.randn(lctx.plan.storage, generator=gen, device=dev,
+                              dtype=L.dtype) for _ in range(2))
+        err2 = check_extend_add(Lx, lecalls, dtype, gen, U=Ux)
+        errs[("extend_add_rows", dtype)] = max(err, err2)
         log(f"[kernels] {dtype}: {len(ecalls)} extend_add_rows calls, max "
-            f"abs err {errs[('extend_add_rows', dtype)]:.3e}; one slab row "
-            "and all-dropped calls exact "
+            f"abs err {err:.3e}; {len(lecalls)} extend_add_rows2 calls, "
+            f"max abs err {err2:.3e}; for both, one slab row, all-dropped "
+            "and single-value (csp 33, unaligned slab) calls exact "
             f"({time.perf_counter() - t0:.1f} s)")
         if dtype == "float32":
-            rows["extend_add_rows"] = extend_add_rows_row(L, ecalls, dtype,
-                                                          gen)
+            rows["extend_add_rows"] = extend_add_rows_row(
+                L, ecalls, dtype, gen, (Lx, Ux, lecalls))
             log("[kernels] f32 timing extend_add_rows "
                 + json.dumps(rows["extend_add_rows"]))
-        del L
+        del L, Lx, Ux
     del ecalls
     torch.cuda.empty_cache()
 
@@ -1574,7 +1664,9 @@ def main(argv) -> int:
             "library_path_ms": r.get("library_path_ms"),
             "library_device_ms": r.get("library_device_ms"),
             "library_path_device_ms": r.get("library_path_device_ms"),
-            "ms_b1": r.get("ms_b1"), "ms_b256": r.get("ms_b256")})
+            "ms_b1": r.get("ms_b1"), "ms_b256": r.get("ms_b256"),
+            "lu_path_ms": r.get("lu_path_ms"),
+            "lu_path_bound_ms": r.get("lu_path_bound_ms")})
     for k in kernels:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

@@ -1,24 +1,36 @@
-"""Probe ``getrf_inv`` and ``syrk_gemm_batched`` on the card: where a
-launch's time goes, by timing copies of the kernel's source with parts cut
-out.
+"""Probe ``getrf_inv``, ``potrf_inv``, ``extend_add_rows`` and
+``syrk_gemm_batched`` on the card: where a launch's time goes, by timing
+copies of the kernel's source with parts cut out.
 
-    python -m spfx_torch.bench.kernel_probe getrf [plan] [SOURCE ...]
+    python -m spfx_torch.bench.kernel_probe getrf|potrf [plan] [SOURCE ...]
+    python -m spfx_torch.bench.kernel_probe extend [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe syrk [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe div
 
-- ``getrf``: device time per launch of ``getrf_inv`` at B = 1, 12, 64 and
-  256 seeded blocks of nb = 32 (every block of full width), f32 and f64,
-  whole and with its parts cut (``GETRF_CUTS``: the two inverses, one of
-  them, everything but the staging and the stores); with ``plan``, in f32
-  on the 48^3 LU plan's own blocks instead (mostly narrower than 32): the
-  first block of its largest call, that call, and all of its calls in
-  one graph;
+- ``getrf`` and ``potrf``: device time per launch of ``getrf_inv`` or
+  ``potrf_inv`` at B = 1, 12, 64 and 256 seeded blocks of nb = 32 (every
+  block of full width), f32 and f64, whole and with its parts cut
+  (``GETRF_CUTS``: the two inverses, one of them, everything but the
+  staging and the stores; ``POTRF_CUTS``: the inverse, everything but the
+  staging and the stores); with ``plan``, in f32 on the 48^3 plan's own
+  blocks instead (LU for getrf, Cholesky for potrf; mostly narrower than
+  32): the first block of its largest call, that call, and all of its
+  calls in one graph;
+- ``extend``: device time of ``extend_add_rows`` in f32 at the 48^3
+  Cholesky plan's largest call (over rotated copies of its slab and E
+  that exceed the L2 cache), and of all of the plan's calls in one graph,
+  each also with every row dropped (the table walk alone); then the LU
+  path, every call on two slabs (one ``extend_add_rows2`` launch where the
+  source has it, else two launches); whole and with its parts cut
+  (``EXTEND_CUTS``: reductions replaced by plain stores, E's loads, the
+  body), and beside them the launch floor: an empty one-block kernel per
+  call, which no design can beat;
 - ``syrk``: device time per launch of ``syrk_gemm_batched`` on its fast
   path at the panel bench's size (2^16 items, n = m = 64, k = 32, f32),
   whole and with its products, its stores or its loads cut
   (``SYRK_CUTS``);
 - ``div``: the f32 division that ``getrf_inv`` takes (``quot`` in
-  csrc/getrf_inv.cu) against the card's IEEE division, bit for bit over
+  csrc/diag_block.cuh) against the card's IEEE division, bit for bit over
   2^26 seeded operand pairs of each of ``DIV_RANGES`` (counting the pairs
   it leaves to the IEEE division), and the time of one step of a chain
   of dependent divisions: IEEE with a nonzero and with a zero numerator,
@@ -27,18 +39,21 @@ out.
 Each copy is the kernel's source under ``csrc/`` with text edits, built
 with nvcc (all copies at once) and loaded with ctypes; a cut copy's
 outputs are wrong, the point is the time each part holds a launch. The
-whole copy is first checked against the plain version (getrf: 1e-4 f32,
-1e-12 f64 of the largest plain output; syrk: 1e-5). Further SOURCE files
-(another version of the same kernel, say the parent commit's) are built
-and timed whole beside it, in the same process, so two designs are
-compared on one card. Times are CUDA-graph replays between CUDA events
+whole copy is first checked against the plain version (getrf, potrf:
+1e-4 f32, 1e-12 f64 of the largest plain output; extend: 1e-6 of the
+slab's largest entry; syrk: 1e-5). Further SOURCE files (another version
+of the same kernel, say the parent commit's) are built, checked and timed
+whole beside it, in the same process, so two designs are compared on one
+card. Times are CUDA-graph replays between CUDA events
 (``lu_lanes_probe.time_ms``). Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -63,6 +78,33 @@ GETRF_CUTS = [
     ("staging and stores only", [("kLinv = true", "kLinv = false"),
                                  ("kUinv = true", "kUinv = false"),
                                  ("kElim = true", "kElim = false")]),
+]
+
+# the same for csrc/potrf_inv.cu
+POTRF_CUTS = [
+    ("whole", []),
+    ("no inverse", [("kInv = true", "kInv = false")]),
+    ("staging and stores only", [("kInv = true", "kInv = false"),
+                                 ("kChol = true", "kChol = false")]),
+]
+
+# the same for csrc/extend_add.cu; the last copy adds an empty kernel of
+# one thread block, launched once per call in place of the kernel
+EXTEND_ENTRY = 'extern "C" int spfx_extend_add_rows_f32('
+EXTEND_FLOOR = r"""
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+EXTEND_CUTS = [
+    ("whole", []),
+    ("reductions replaced by plain stores",
+     [("kAtomic = true", "kAtomic = false")]),
+    ("E's loads cut", [("kLoadE = true", "kLoadE = false")]),
+    ("empty body, the design's grid", [("kBody = true", "kBody = false")]),
+    ("launch floor", [(EXTEND_ENTRY, EXTEND_FLOOR + EXTEND_ENTRY)]),
 ]
 
 # the same for csrc/syrk_gemm.cu, its fast (bulk) path
@@ -185,6 +227,18 @@ def getrf_inputs(B: int, dtype):
             torch.from_numpy(D).to(dev, dtype))
 
 
+def potrf_inputs(B: int, dtype):
+    """(wrel, D): seeded SPD (B, 32, 32) blocks X X^T + 32 I with junk
+    above the diagonal (never read), every block of full width."""
+    rng = np.random.default_rng(B)
+    X = rng.standard_normal((B, 32, 32))
+    D = X @ np.swapaxes(X, 1, 2) + 32.0 * np.eye(32)[None]
+    D += np.triu(rng.standard_normal((B, 32, 32)) * 100.0, 1)
+    dev = torch.device("cuda")
+    return (torch.full((B,), 32, dtype=torch.int32, device=dev),
+            torch.from_numpy(D).to(dev, dtype))
+
+
 def plan_getrf_calls(ctx, dev):
     """(wrel, D) of every getrf_inv call of the LU plan of ``ctx`` (an
     ``spfx_torch.LU``): the 32 x 32 diagonal blocks of each PC bucket's LU
@@ -211,13 +265,47 @@ def plan_getrf_calls(ctx, dev):
     return out
 
 
-def getrf(extra=(), plan=False) -> bool:
+def plan_potrf_calls(ctx, dev):
+    """(wrel, D) of every potrf_inv call of the Cholesky plan of ``ctx``
+    (an ``spfx_torch.Cholesky``): the 32 x 32 diagonal blocks of each PC
+    bucket, taken from the assembled (not yet factored) matrix."""
+    from spfx_torch.kernels import blocks
+    plan = ctx.plan
+    L = blocks.assemble(torch.as_tensor(plan.assembly_idx, device=dev),
+                        ctx.entry_values(ctx.A), plan.storage)
+    out = []
+    for lp in plan.levels:
+        for pb in lp.panels:
+            widths = pb.to_u(dev)[0]
+            B, cp, rbp = widths.shape[0], pb.cp, pb.rbp
+            lo = int(pb.slab_lo[0])
+            blk = L[lo:lo + B * (cp + rbp) * cp].view(B, cp + rbp, cp)
+            for s in range(0, cp, blocks.NB):
+                e = min(s + blocks.NB, cp)
+                wrel = (widths - s).clamp(0, e - s).to(torch.int32)
+                out.append((wrel, blk[:, s:e, s:e].contiguous()))
+    return out
+
+
+# kind: (source, cuts, outputs, plain version, seeded inputs, plan calls,
+# plan context)
+DIAG = {"getrf": ("getrf_inv.cu", GETRF_CUTS, 4, "getrf_inv_plain",
+                  getrf_inputs, plan_getrf_calls, "LU"),
+        "potrf": ("potrf_inv.cu", POTRF_CUTS, 2, "potrf_inv_plain",
+                  potrf_inputs, plan_potrf_calls, "Cholesky")}
+
+
+def diag(kind: str, extra=(), plan=False) -> bool:
+    """The ``getrf`` and ``potrf`` modes (see the module docstring)."""
+    src, cuts, nout, plain_name, make_inputs, plan_calls, ctx_name = \
+        DIAG[kind]
+    plain = getattr(panel, plain_name)
     dev = torch.device("cuda")
     if plan:
         import spfx_torch
         from spfx_torch.io import generate
-        calls = plan_getrf_calls(
-            spfx_torch.LU(generate.laplacian_3d(48), device=dev), dev)
+        calls = plan_calls(getattr(spfx_torch, ctx_name)(
+            generate.laplacian_3d(48), device=dev), dev)
         wrel, D = max(calls, key=lambda c: c[0].shape[0])
         cases = {torch.float32: [
             (f"48^3 plan's largest call, first block (w {int(wrel[0])})",
@@ -225,20 +313,21 @@ def getrf(extra=(), plan=False) -> bool:
             (f"48^3 plan's largest call (B {wrel.shape[0]})", [(wrel, D)]),
             (f"48^3 plan's {len(calls)} calls", calls)]}
     else:
-        cases = {td: [(f"B {B}", [getrf_inputs(B, td)])
+        cases = {td: [(f"B {B}", [make_inputs(B, td)])
                       for B in GETRF_BATCHES]
                  for td in (torch.float32, torch.float64)}
-    libs = build("getrf_inv.cu", GETRF_CUTS, extra)
+    libs = build(src, cuts, extra)
+    name_of = f"spfx_{src[:-3]}_"
     ok = True
     for td, tcases in cases.items():
         t = "f32" if td == torch.float32 else "f64"
-        fns = [(name, entry(lib, [f"spfx_getrf_inv_{t}"],
-                            _cuda._SIGNATURES["getrf_inv"][
-                                f"spfx_getrf_inv_{t}"]))
+        fns = [(name, entry(lib, [name_of + t],
+                            _cuda._SIGNATURES[src[:-3]][name_of + t]))
                for name, lib in libs]
         for label, calls in tcases:
             calls = [(w, d.to(td)) for w, d in calls]
-            outs = [[torch.empty_like(d) for _ in range(4)] for _, d in calls]
+            outs = [[torch.empty_like(d) for _ in range(nout)]
+                    for _, d in calls]
             for k, (name, fn) in enumerate(fns):
                 def run(fn=fn):
                     for (w, d), o in zip(calls, outs):
@@ -247,13 +336,13 @@ def getrf(extra=(), plan=False) -> bool:
                                 d.shape[1], stream())
                         if rc:
                             raise RuntimeError(f"{name!r}: CUDA error {rc}")
-                line = f"getrf {t} {label} {name}: "
-                if name == "whole" or k >= len(GETRF_CUTS):
+                line = f"{kind} {t} {label} {name}: "
+                if name == "whole" or k >= len(cuts):
                     run()
                     torch.cuda.synchronize()
                     err, tol = 0.0, 0.0
                     for (w, d), o in zip(calls, outs):
-                        refs = panel.getrf_inv_plain(w, d)
+                        refs = plain(w, d)
                         scale = max(max(float(r.abs().max()) for r in refs),
                                     1.0)
                         e = max(float((x - r).abs().max())
@@ -270,6 +359,164 @@ def getrf(extra=(), plan=False) -> bool:
                     line += (f"{time_ms(run, reps=1, rounds=3):.3f} ms in "
                              "one graph")
                 print(line, flush=True)
+    return ok
+
+
+def plan_extend_calls(plan, dev):
+    """(slab_lo, srows, csp, rows) of every UT step of the plan: the
+    step's slab of the flat factor and its row table (one entry per row of
+    the step's E)."""
+    return [(int(ub.slab_lo[0]), ub.slab_rows, ub.csp, ub.rows_to(dev))
+            for lp in plan.levels for ub in lp.updates]
+
+
+def extend_add_bytes(rows, csp: int, item: int) -> float:
+    """Bytes that one extend_add_rows call must move: each live row of E
+    read once, each distinct slab row it names read and written once (rows
+    of E that share a slab row share its traffic), plus the table."""
+    live = rows[rows >= 0]
+    return float((live.numel() + 2 * torch.unique(live).numel()) * csp * item
+                 + 4 * rows.shape[0])
+
+
+def declared_arity(text: str, fn: str) -> int:
+    """The number of parameters that the source ``text`` declares for its
+    extern "C" function ``fn``."""
+    m = re.search(r'extern "C" int ' + fn + r'\(([^)]*)\)', text)
+    if m is None:
+        raise ValueError(f"no extern \"C\" {fn} in the source")
+    return len(m.group(1).split(","))
+
+
+def extend(extra=()) -> bool:
+    """The ``extend`` mode (see the module docstring)."""
+    import spfx_torch
+    from spfx_torch.io import generate
+    from spfx_torch.kernels import extend_add
+    dev = torch.device("cuda")
+    ctx = spfx_torch.Cholesky(generate.laplacian_3d(48), device=dev)
+    calls = plan_extend_calls(ctx.plan, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    flats = [torch.randn(ctx.plan.storage, generator=gen, device=dev)
+             for _ in range(2)]
+    ebufs = [torch.randn(max(r.shape[0] * cs for _, _, cs, r in calls),
+                         generator=gen, device=dev) for _ in range(2)]
+
+    def step(lo, sr, cs, r, k=0):
+        return (flats[k][lo:lo + sr * cs].view(sr, cs), r,
+                ebufs[k][:r.shape[0] * cs].view(-1, cs))
+
+    path = [step(*c) for c in calls]
+    dropped = [(s, torch.full_like(r, -1), e) for s, r, e in path]
+    lu_path = [(step(*c), step(*c, k=1)) for c in calls]
+    lo, srows, csp, rows = max(calls, key=lambda c: extend_add_bytes(
+        c[3], c[2], 4))
+    copies = 1 + int(2 * 50e6 // ((srows + 2 * rows.shape[0]) * csp * 4))
+    big = [(flats[0][lo:lo + srows * csp].view(srows, csp).clone(), rows,
+            torch.randn((rows.shape[0], csp), generator=gen, device=dev))
+           for _ in range(copies)]
+    big_dropped = [(s, torch.full_like(r, -1), e) for s, r, e in big]
+    live = rows >= 0
+    print(f"extend 48^3 plan: {len(calls)} calls, largest srows {srows} csp "
+          f"{csp} RE {rows.shape[0]} live {int(live.sum())} targets "
+          f"{torch.unique(rows[live]).numel()}, {copies} rotated copies",
+          flush=True)
+    sigs = _cuda._SIGNATURES["extend_add"]
+    sig = sigs["spfx_extend_add_rows_f32"]
+    libs = build("extend_add.cu", EXTEND_CUTS, extra)
+    texts = [open(os.path.join(CSRC, "extend_add.cu")).read()] \
+        * len(EXTEND_CUTS) + [open(src).read() for src in extra]
+    ok = True
+    for k, ((name, lib), text) in enumerate(zip(libs, texts)):
+        # each source is called as it declares its entries: the path flag
+        # where its single entry has a parameter for it (an older source
+        # has none), the twin where it defines one
+        vec = declared_arity(text, "spfx_extend_add_rows_f32") == len(sig)
+        twin = None
+        if hasattr(lib, "spfx_extend_add_rows2_f32"):
+            twin = entry(lib, ["spfx_extend_add_rows2_f32"],
+                         sigs["spfx_extend_add_rows2_f32"])
+        fn = entry(lib, ["spfx_extend_add_rows_f32"],
+                   sig if vec else sig[:6] + sig[7:])
+
+        def flag(*ts, vec=vec):
+            return (int(extend_add.vector_path(
+                ts[0].shape[1], 4, [t.data_ptr() for t in ts])),) if vec \
+                else ()
+        per_step = "one twin launch" if twin else "two launches"
+        if name == "launch floor":
+            per_step = "one empty launch"
+            floor = entry(lib, ["empty_launch"], [ctypes.c_void_p])
+
+            def one(s, r, e):
+                if floor(stream()):
+                    raise RuntimeError("empty_launch: CUDA error")
+
+            def two(a, b):
+                one(*a)
+        else:
+            def one(s, r, e, fn=fn, flag=flag):
+                rc = fn(s.data_ptr(), s.shape[0], s.shape[1], r.data_ptr(),
+                        r.shape[0], e.data_ptr(), *flag(s, e), stream())
+                if rc:
+                    raise RuntimeError(f"{name!r}: CUDA error {rc}")
+
+            def two(a, b, one=one, twin=twin):
+                if twin is None:
+                    one(*a)
+                    one(*b)
+                    return
+                (sl, r, el), (su, _, eu) = a, b
+                rc = twin(sl.data_ptr(), su.data_ptr(), sl.shape[0],
+                          sl.shape[1], r.data_ptr(), r.shape[0],
+                          el.data_ptr(), eu.data_ptr(),
+                          *flag(sl, su, el, eu), stream())
+                if rc:
+                    raise RuntimeError(f"{name!r}: CUDA error {rc}")
+        whole = name == "whole" or k >= len(EXTEND_CUTS)
+        if whole:
+            # every call against the plain version on a copy of its slab;
+            # the twin (or the pair of calls) against two plain calls
+            err = 0.0
+            for (s, r, e), (b, _, f) in lu_path:
+                sa, sb = s.clone(), b.clone()
+                two((sa, r, e), (sb, r, f))
+                ra = extend_add.extend_add_rows_plain(s.clone(), r, e)
+                rb = extend_add.extend_add_rows_plain(b.clone(), r, f)
+                err = max(err, float((sa - ra).abs().max()
+                                     / ra.abs().max()),
+                          float((sb - rb).abs().max() / rb.abs().max()))
+            good = err <= 1e-6
+            ok &= good
+            print(f"extend f32 {name}: {len(lu_path)} calls on two slabs, "
+                  f"rel err {err:.3e} {'OK' if good else 'FAIL'}",
+                  flush=True)
+        cases = [("largest call", big, True), ("path", path, False)]
+        if whole:
+            cases += [("largest call, every row dropped", big_dropped, True),
+                      ("path, every row dropped", dropped, False)]
+        for label, sets, single in cases:
+            if single:
+                it = itertools.cycle(sets)
+                t = time_ms(lambda: one(*next(it)), reps=4 * len(sets))
+                print(f"extend f32 {label} {name}: {t * 1e3:.2f} us per "
+                      "launch", flush=True)
+            else:
+                def run(sets=sets):
+                    for c in sets:
+                        one(*c)
+                t = time_ms(run, reps=1, rounds=3)
+                print(f"extend f32 {label} {name}: {t:.3f} ms in one graph",
+                      flush=True)
+
+        def run_lu():
+            for a, b in lu_path:
+                two(a, b)
+        print(f"extend f32 LU path {name}: "
+              f"{time_ms(run_lu, reps=1, rounds=3):.3f} ms in one graph "
+              f"({per_step} a step)",
+              flush=True)
     return ok
 
 
@@ -379,10 +626,11 @@ def main(argv) -> int:
     mode = argv[0] if argv else "getrf"
     rest = argv[1:]
     with matmul_precision("highest"):
-        if mode == "getrf" and rest[:1] == ["plan"]:
-            ok = getrf(rest[1:], plan=True)
+        if mode in DIAG:
+            plan = rest[:1] == ["plan"]
+            ok = diag(mode, rest[1:] if plan else rest, plan=plan)
         else:
-            ok = {"getrf": getrf, "syrk": syrk, "div": div}[mode](rest)
+            ok = {"extend": extend, "syrk": syrk, "div": div}[mode](rest)
     return 0 if ok else 1
 
 

@@ -59,10 +59,16 @@ _SIGNATURES = {
                    for kind, sig in (("chol", _PANEL_CHOL),
                                      ("lu", _PANEL_LU))
                    for t in ("f32", "f64")},
-    # (slab, Rs, csp, rows, RE, E, stream)
-    "extend_add": {f"spfx_extend_add_rows_{t}": [_vp, _c_ll, _c_int, _vp,
-                                                 _c_ll, _vp, _vp]
-                   for t in ("f32", "f64")},
+    # (slab, Rs, csp, rows, RE, E, vec, stream); the twin (rows2) takes
+    # two slabs and two E: (slab_l, slab_u, Rs, csp, rows, RE, EL, EU, vec,
+    # stream)
+    "extend_add": {**{f"spfx_extend_add_rows_{t}": [_vp, _c_ll, _c_int, _vp,
+                                                    _c_ll, _vp, _c_int, _vp]
+                      for t in ("f32", "f64")},
+                   **{f"spfx_extend_add_rows2_{t}": [_vp, _vp, _c_ll, _c_int,
+                                                     _vp, _c_ll, _vp, _vp,
+                                                     _c_int, _vp]
+                      for t in ("f32", "f64")}},
     # (A, B, S, G, batch, n, m, k, stream)
     "syrk_gemm": {f"spfx_syrk_gemm_{p}_{t}": [_vp] * 4 + [_c_int] * 4
                   + [_vp] for p in ("general", "bulk")

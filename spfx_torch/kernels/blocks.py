@@ -21,8 +21,9 @@ view of the flat tensor and is updated where it lies).
 
 LU stores L (unit diagonal, zeros above it) in ``Lx`` and U^T (U's
 diagonal on its diagonal) in ``Ux``, slot for slot in the same panel
-layout; an LU step runs the Cholesky step's gathers and extend-add once
-per array, with crossed products (C_L = G_L H_U^T, C_U = G_U H_L^T).
+layout; an LU step runs the Cholesky step's gathers once per array, with
+crossed products (C_L = G_L H_U^T, C_U = G_U H_L^T), and one twin
+extend-add (``extend_add.extend_add_rows2``) into both arrays.
 """
 
 from __future__ import annotations
@@ -182,25 +183,26 @@ def _place_cols(C, tgt_cpos, csp: int):
     return E.scatter_add_(2, col[:, None, :].expand(B, rows, np_h), C)
 
 
-def extend_add_slab(L, slab_lo: int, tgt_rows, E, srows: int, csp: int):
-    """Subtract the valid update rows of E (B, rows, csp) into the slab
-    L[slab_lo : slab_lo + srows*csp] viewed as (srows, csp), IN PLACE, with
-    one ``extend_add.extend_add_rows`` launch: E row i lands on slab row
-    tgt_rows[i] (the bucket's flat ``tgt_lrow``, -1 drops the row). Several
-    E rows may target one slab row; on the card their sum order is not
-    fixed."""
-    slab = L[slab_lo:slab_lo + srows * csp].view(srows, csp)
-    extend_add.extend_add_rows(slab, tgt_rows, E.reshape(-1, csp))
-    return L
+def slab_view(L, slab_lo: int, srows: int, csp: int):
+    """The slab L[slab_lo : slab_lo + srows*csp] of a flat array, viewed as
+    (srows, csp)."""
+    return L[slab_lo:slab_lo + srows * csp].view(srows, csp)
 
 
 def apply_updates_sym_t(L, kw, mrows, rstart, src_start, head_start,
                         slab_lo: int, tgt_rows, tgt_cpos, mp: int, kp: int,
                         csp: int, srows: int):
-    """One UT update step, in place: update rows, then extend-add."""
+    """One UT update step, in place: update rows E (B, rows, csp), then one
+    ``extend_add.extend_add_rows`` launch that subtracts E's valid rows
+    from the slab of L at slab_lo (``slab_view``): E row i lands on slab
+    row tgt_rows[i] (the bucket's flat ``tgt_lrow``, -1 drops the row).
+    Several E rows may target one slab row; on the card their sum order is
+    not fixed."""
     E = update_rows_sym_t(L, kw, mrows, rstart, src_start, head_start,
                           tgt_cpos, mp, kp, csp)
-    return extend_add_slab(L, slab_lo, tgt_rows, E, srows, csp)
+    extend_add.extend_add_rows(slab_view(L, slab_lo, srows, csp), tgt_rows,
+                               E.reshape(-1, csp))
+    return L
 
 
 # --------------------------------------------------------------------------
@@ -229,12 +231,15 @@ def update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
 def apply_updates_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
                        slab_lo: int, tgt_rows, tgt_cpos, mp: int, kp: int,
                        csp: int, srows: int):
-    """One LU UT update step, in place on Lx and Ux (one extend-add launch
-    per array)."""
+    """One LU UT update step, in place on Lx and Ux: update rows, then one
+    ``extend_add.extend_add_rows2`` launch that subtracts EL's valid rows
+    from Lx's slab and EU's from Ux's, both at the same offset and rows (on
+    the card their sum order is not fixed)."""
     EL, EU = update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start,
                               head_start, tgt_cpos, mp, kp, csp)
-    extend_add_slab(Lx, slab_lo, tgt_rows, EL, srows, csp)
-    extend_add_slab(Ux, slab_lo, tgt_rows, EU, srows, csp)
+    extend_add.extend_add_rows2(
+        slab_view(Lx, slab_lo, srows, csp), slab_view(Ux, slab_lo, srows, csp),
+        tgt_rows, EL.reshape(-1, csp), EU.reshape(-1, csp))
     return Lx, Ux
 
 

@@ -1,8 +1,10 @@
-"""The port's extend-add on the CPU: the plain ``extend_add_rows`` against
-the JAX package's Pallas kernel in interpret mode, with the same seeded
-numpy inputs, the plan's row table against its windowed one-hot group
-tables, and the host check of the extend-add tables. The UT steps through
-it are held against JAX's in test_torch_kernels.py and test_torch_lu.py."""
+"""The port's extend-add on the CPU: the plain ``extend_add_rows`` and its
+LU twin ``extend_add_rows2`` against the JAX package's Pallas kernel in
+interpret mode, with the same seeded numpy inputs, the choice between the
+kernel's 16-byte and single-value paths, the plan's row table against its
+windowed one-hot group tables, and the host check of the extend-add
+tables. The UT steps through it are held against JAX's in
+test_torch_kernels.py and test_torch_lu.py."""
 
 import numpy as np
 import pytest
@@ -131,6 +133,71 @@ def test_extend_add_rows_rejects_bad_input():
         extend_add.extend_add_rows(torch.zeros(3, 4, dtype=torch.float64).T,
                                    ok, E)
     assert torch.equal(slab, torch.zeros(4, 3, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("Rs,csp,total", [(40, 24, 300), (64, 33, 1000),
+                                          (8, 3, 5)])
+def test_extend_add_rows2_matches_pallas(Rs, csp, total, dtype):
+    """The twin against the Pallas extend_add_rows on each slab, with one
+    row table (repeated targets and dropped rows), at TOL."""
+    npd, _ = DTYPES[dtype]
+    sl, rows, EL = _inputs(Rs, csp, total, npd, 2 * Rs + csp + total)
+    su, _, EU = _inputs(Rs, csp, total, npd, 3 * Rs + csp + total)
+    outs = extend_add.extend_add_rows2(
+        torch.from_numpy(sl.copy()), torch.from_numpy(su.copy()),
+        torch.from_numpy(rows), torch.from_numpy(EL), torch.from_numpy(EU))
+    for out, slab, E in zip(outs, (sl, su), (EL, EU)):
+        ref = np.asarray(pallas_blocks.extend_add_rows(
+            jnp.asarray(slab), jnp.asarray(rows), jnp.asarray(E)))
+        assert out.dtype == DTYPES[dtype][1]
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                                   atol=TOL[dtype] * np.abs(ref).max())
+
+
+def test_extend_add_rows2_rejects_bad_input():
+    """Mismatched slabs, E shapes, dtypes and devices raise before any
+    slab changes, as does a live row past the slabs."""
+    f64 = dict(dtype=torch.float64)
+    sl, su = torch.zeros(4, 3, **f64), torch.zeros(4, 3, **f64)
+    E = torch.ones(2, 3, **f64)
+    ok = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="each pair must match"):
+        extend_add.extend_add_rows2(sl, torch.zeros(5, 3, **f64), ok, E, E)
+    with pytest.raises(ValueError, match="each pair must match"):
+        extend_add.extend_add_rows2(sl, torch.zeros(4, 2, **f64), ok, E,
+                                    torch.ones(2, 2, **f64))
+    with pytest.raises(ValueError, match="csp"):
+        extend_add.extend_add_rows2(sl, su, ok, E, torch.ones(2, 4, **f64))
+    with pytest.raises(TypeError):
+        extend_add.extend_add_rows2(sl, su.float(), ok, E, E.float())
+    with pytest.raises(TypeError):
+        extend_add.extend_add_rows2(sl, su, ok, E, E.float())
+    with pytest.raises(ValueError, match="on meta"):
+        extend_add.extend_add_rows2(sl, su.to("meta"), ok, E, E.to("meta"))
+    with pytest.raises(ValueError, match="Ef on meta"):
+        extend_add.extend_add_rows2(sl, su, ok, E, E.to("meta"))
+    with pytest.raises(ValueError, match="past the slab"):
+        extend_add.extend_add_rows2(sl, su, torch.tensor([0, 4],
+                                                         dtype=torch.int32),
+                                    E, E)
+    assert not sl.any() and not su.any()
+
+
+@pytest.mark.parametrize("csp,item,ptrs,want", [
+    (256, 4, (0, 4096), True),       # the plan's widths, aligned
+    (32, 4, (512, 16), True),
+    (2, 8, (0, 16, 32, 48), True),   # f64: one vector a row
+    (33, 4, (0, 4096), False),       # a row is no whole number of vectors
+    (6, 4, (0, 16), False),
+    (3, 8, (0, 16), False),
+    (256, 4, (0, 4), False),         # E one value past a boundary
+    (256, 8, (8, 0, 16, 32), False),
+])
+def test_vector_path(csp, item, ptrs, want):
+    """The kernel's 16-byte path needs rows of whole 16-byte vectors and
+    16-byte aligned slabs and E."""
+    assert extend_add.vector_path(csp, item, ptrs) is want
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 with the same seeded numpy inputs: the plain window gathers against the
 XLA superwindow gather, the plain potrf_inv against the Pallas kernel in
 interpret mode, the blocked panel path, and one real UT update step; and
-the kernel build's staleness test on temporary files."""
+the kernel build's staleness test on temporary files, the C entry points
+against their ctypes signatures, and the kernel probe's cuts against the
+sources they edit."""
 
 import os
 import re
@@ -21,6 +23,7 @@ from spfx.plan.schedule import build_plan as jbuild_plan
 from spfx.symbolic.analyze import analyze as janalyze
 from spfx.utils.config import Config as JConfig
 
+from spfx_torch.bench import kernel_probe
 from spfx_torch.io import generate
 from spfx_torch.kernels import _cuda, blocks, gather, panel
 from spfx_torch.plan.schedule import ALIGN, build_plan
@@ -168,6 +171,42 @@ def test_every_source_is_bound():
     names = {os.path.splitext(f)[0] for f in os.listdir(_cuda._CSRC)
              if f.endswith(".cu")}
     assert names == set(_cuda._SIGNATURES)
+
+
+@pytest.mark.parametrize("source,cuts", [
+    ("getrf_inv.cu", kernel_probe.GETRF_CUTS),
+    ("syrk_gemm.cu", kernel_probe.SYRK_CUTS),
+    ("potrf_inv.cu", kernel_probe.POTRF_CUTS),
+    ("extend_add.cu", kernel_probe.EXTEND_CUTS)])
+def test_probe_cuts_apply(source, cuts):
+    """Every edit of every cut of kernel_probe finds its text exactly once
+    in the files it edits (the source and the csrc headers), so that a
+    probe never times an uncut copy unawares; the first cut is the whole
+    kernel."""
+    files = [source] + sorted(f for f in os.listdir(_cuda._CSRC)
+                              if f.endswith(".cuh"))
+    text = "".join(open(os.path.join(_cuda._CSRC, f)).read() for f in files)
+    assert cuts[0] == ("whole", [])
+    for name, edits in cuts[1:]:
+        assert edits, name
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            assert old != new
+
+
+@pytest.mark.parametrize("fn", sorted(_cuda._SIGNATURES["extend_add"]))
+def test_probe_declared_arity(fn):
+    """The probe's reading of a source's declared parameters (how it calls
+    an older extend_add source) agrees with _cuda's binding of each entry,
+    and sees one parameter fewer once the path flag is taken out."""
+    text = open(os.path.join(_cuda._CSRC, "extend_add.cu")).read()
+    n = len(_cuda._SIGNATURES["extend_add"][fn])
+    assert kernel_probe.declared_arity(text, fn) == n
+    old = text.replace("const void* E, int vec,", "const void* E,")
+    if fn.startswith("spfx_extend_add_rows_"):
+        assert kernel_probe.declared_arity(old, fn) == n - 1
+    with pytest.raises(ValueError):
+        kernel_probe.declared_arity(text, fn + "_missing")
 
 
 # --------------------------------------------------------------------------
