@@ -36,9 +36,14 @@ non-zero):
    (slab untouched); times of kernel, plain version and the masked
    index_add_ at the largest call, its bound, and the whole path's calls
    in one graph;
-3e. cholesky_small_batched at (64, 8), c = 1, 7, 16 and (65,536, 32), f32
-   and f64, against the plain version, with L L^T = D and exact zeros above
-   the diagonal; times against torch.linalg.cholesky_ex at (65,536, 32);
+3e. cholesky_small_batched at every c from 1 to 32 at batches 1, 3 and
+   133, at (64, 8), c = 1, 7, 16 and (65,536, 32), f32 and f64, NaN, +Inf
+   or 1e3 above the diagonal, against the plain version, with L L^T = D,
+   exact zeros above the diagonal and L bit for bit the factor of the
+   input with zeros there; unaligned inputs (the single-value path) bit
+   for bit the aligned ones' factors; a negative pivot's NaN where the
+   plain version has them; times against torch.linalg.cholesky_ex at
+   (65,536, 32);
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
    default Config, launch counts against the plan (window_gather2 once per
    UT step and factor array, extend_add_rows once per UT step: LU's twin
@@ -1064,68 +1069,144 @@ def extend_add_rows_row(L, calls, dtype: str, gen, lu):
 # phase 3e: cholesky_small_batched
 # --------------------------------------------------------------------------
 
+CHOL_SMALL_SHAPES = ([(64, 8), (64, 1), (64, 7), (64, 16), (SMALL_BATCH, 32)]
+                     + [(b, c) for c in range(1, 33) for b in (1, 3, 133)])
+CHOL_SMALL_OFFSET = [(133, 32), (133, 16), (3, 2)]   # D one value past
+                                                     # 16-byte alignment
+
+
 def small_spd(batch: int, c: int, dev, gen):
     """(D with junk above the diagonal, the SPD matrix of its lower
-    triangle), f64: X X^T + c I."""
+    triangle), f64: X X^T + c I. The junk is 1e3, NaN in matrices 0, 4,
+    8, ... and +Inf in matrices 2, 6, ...: half of them."""
     import torch
     X = torch.randn(batch, c, c, generator=gen, device=dev,
                     dtype=torch.float64)
     D = X @ X.transpose(1, 2) + c * torch.eye(c, device=dev,
                                               dtype=torch.float64)
-    return D + torch.triu(torch.full_like(D, 1e3), 1), D
+    Dj = D + torch.triu(torch.full_like(D, 1e3), 1)
+    up = torch.ones(c, c, dtype=torch.bool, device=dev).triu(1)
+    Dj[0::4] = Dj[0::4].masked_fill(up, float("nan"))
+    Dj[2::4] = Dj[2::4].masked_fill(up, float("inf"))
+    return Dj, D
 
 
 def check_chol_small(dev, gen):
-    """(64, 8), c in {1, 7, 16} and (65,536, 32), f32 and f64, against the
-    plain version (f32 1e-4, f64 1e-12 of the largest entry: the same
-    recurrence, sums in other orders and fused on the card), L L^T = D
-    (f32 1e-5, f64 1e-12 of D's largest entry) and exact zeros above the
-    diagonal. Returns {dtype: largest |kernel - plain|}."""
+    """Every shape of CHOL_SMALL_SHAPES (c from 1 to 32 at batches 1, 3
+    and 133, a few more, and (65,536, 32)), f32 and f64, with the junk of
+    ``small_spd`` above the diagonal: against the plain version (f32 1e-4,
+    f64 1e-12 of the largest entry: the same recurrence, sums in other
+    orders and fused on the card), L L^T = D (f32 1e-5, f64 1e-12 of D's
+    largest entry), exact zeros above the diagonal, and bit for bit the
+    kernel's factor of the same input with zeros above the diagonal; the
+    CHOL_SMALL_OFFSET shapes with D one value past 16-byte alignment (the
+    single-value path where the 16-byte one would serve) bit for bit the
+    aligned input's factor. Returns {dtype: largest |kernel - plain|}."""
     import torch
     from spfx_torch.kernels import chol_small
     worst = {}
-    for batch, c in ((64, 8), (64, 1), (64, 7), (64, 16), (SMALL_BATCH, 32)):
+    for batch, c in CHOL_SMALL_SHAPES:
         Dj, D = small_spd(batch, c, dev, gen)
         for dtype in ("float32", "float64"):
             td = getattr(torch, dtype)
+            what = f"cholesky_small_batched {dtype} ({batch}, {c})"
             L = chol_small.cholesky_small_batched(Dj.to(td))
             ref = chol_small.cholesky_small_batched_plain(Dj.to(td))
             err = max_diff(L, ref)
             tol, rtol = (1e-4, 1e-5) if dtype == "float32" else (1e-12, 1e-12)
             if not err <= tol * max(float(ref.abs().max()), 1.0):
-                fail(f"cholesky_small_batched {dtype} ({batch}, {c}): "
-                     f"{err:.3e} from its plain version")
+                fail(f"{what}: {err:.3e} from its plain version")
             Ld = L.double()
             rec = float((Ld @ Ld.transpose(1, 2) - D).abs().max())
             if not rec <= rtol * float(D.abs().max()):
-                fail(f"cholesky_small_batched {dtype} ({batch}, {c}): "
-                     f"L L^T = D off by {rec:.3e}")
+                fail(f"{what}: L L^T = D off by {rec:.3e}")
             if not bool((torch.triu(L, 1) == 0).all()):
-                fail(f"cholesky_small_batched {dtype} ({batch}, {c}): "
-                     "nonzero above the diagonal")
+                fail(f"{what}: nonzero above the diagonal")
+            clean = chol_small.cholesky_small_batched(torch.tril(D).to(td))
+            if not torch.equal(L, clean):
+                fail(f"{what}: the junk above the diagonal changed L")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+    for batch, c in CHOL_SMALL_OFFSET:
+        _, D = small_spd(batch, c, dev, gen)
+        for dtype in ("float32", "float64"):
+            td = getattr(torch, dtype)
+            buf = torch.empty(batch * c * c + 1, dtype=td, device=dev)
+            Do = buf[1:].view(batch, c, c)
+            Do.copy_(D)
+            if not torch.equal(chol_small.cholesky_small_batched(Do),
+                               chol_small.cholesky_small_batched(D.to(td))):
+                fail(f"cholesky_small_batched {dtype} ({batch}, {c}): "
+                     "unaligned D gives another L")
     torch.cuda.synchronize()
     return worst
+
+
+def check_chol_small_pivot(dev, gen):
+    """A negative pivot (d_77 = -1e3 in matrix 2 of 5) at c = 32 and 13,
+    f32 and f64: NaN in the same places as the plain version (from (7, 7)
+    on, in that matrix only), the other entries within the tolerances of
+    ``check_chol_small``."""
+    import torch
+    from spfx_torch.kernels import chol_small
+    for c in (32, 13):
+        Dj, _ = small_spd(5, c, dev, gen)
+        Dj[2, 7, 7] = -1e3
+        for dtype in ("float32", "float64"):
+            td = getattr(torch, dtype)
+            what = f"cholesky_small_batched {dtype} (5, {c}), negative pivot"
+            L = chol_small.cholesky_small_batched(Dj.to(td))
+            ref = chol_small.cholesky_small_batched_plain(Dj.to(td))
+            nan = torch.isnan(ref)
+            if not (torch.equal(torch.isnan(L), nan) and bool(nan[2, 7, 7])
+                    and int(nan.sum()) == (c - 7) * (c - 6) // 2):
+                fail(f"{what}: NaN in {int(torch.isnan(L).sum())} places, "
+                     f"the plain version in {int(nan.sum())}")
+            tol = 1e-4 if dtype == "float32" else 1e-12
+            err = max_diff(L[~nan], ref[~nan])
+            if not err <= tol * max(float(ref[~nan].abs().max()), 1.0):
+                fail(f"{what}: {err:.3e} from its plain version")
+    torch.cuda.synchronize()
 
 
 def chol_small_row(dev, gen):
     """Times (kernel, plain, library: cholesky_ex of the symmetric matrix)
     and bound at (65,536, 32) f32: each matrix's lower triangle read,
-    c(c+1)/2 values, its factor written, c^2, for c^3/3 flops."""
+    c(c+1)/2 values, its factor written, c^2, for c^3/3 flops; beside
+    them the same four numbers in f64 at (65,536, 32) and in f32 at
+    (65,536, 16)."""
     import torch
     from spfx_torch.kernels import chol_small
+
+    def inputs(batch, c, td):
+        _, D = small_spd(batch, c, dev, gen)
+        return (D + torch.triu(torch.full_like(D, 1e3), 1)).to(td), D.to(td)
+
+    def bound_of(batch, c, dtype):
+        return bound(batch * (c * (c + 1) / 2 + c * c)
+                     * (4.0 if dtype == "float32" else 8.0),
+                     batch * c ** 3 / 3.0, dtype)
+
     batch, c = SMALL_BATCH, 32
-    Dj, D = small_spd(batch, c, dev, gen)
-    Dj, D = Dj.float(), D.float()
-    bms, by = bound(batch * (c * (c + 1) / 2 + c * c) * 4.0,
-                    batch * c ** 3 / 3.0, "float32")
-    return dict(
+    Dj, D = inputs(batch, c, torch.float32)
+    bms, by = bound_of(batch, c, "float32")
+    row = dict(
         shape=f"batch={batch} c={c}",
         ms=time_ms(lambda: chol_small.cholesky_small_batched(Dj)),
         plain_ms=time_ms(lambda: chol_small.cholesky_small_batched_plain(Dj),
                          reps=2, rounds=3),
         library_ms=time_ms(lambda: torch.linalg.cholesky_ex(D)),
         bound_ms=bms, bound_by=by)
+    for key, c, dtype in (("f64", 32, "float64"), ("c16", 16, "float32")):
+        Dj, D = inputs(batch, c, getattr(torch, dtype))
+        row[f"ms_{key}"] = time_ms(
+            lambda: chol_small.cholesky_small_batched(Dj))
+        row[f"plain_ms_{key}"] = time_ms(
+            lambda: chol_small.cholesky_small_batched_plain(Dj), reps=2,
+            rounds=3)
+        row[f"library_ms_{key}"] = time_ms(
+            lambda: torch.linalg.cholesky_ex(D))
+        row[f"bound_ms_{key}"] = bound_of(batch, c, dtype)[0]
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -1539,9 +1620,13 @@ def main(argv) -> int:
     # 3e. cholesky_small_batched (no path runs it)
     t0 = time.perf_counter()
     cerr = check_chol_small(dev, gen)
+    check_chol_small_pivot(dev, gen)
     errs.update({("cholesky_small_batched", d): v for d, v in cerr.items()})
     rows["cholesky_small_batched"] = chol_small_row(dev, gen)
-    log(f"[kernels] cholesky_small_batched max abs err "
+    log(f"[kernels] cholesky_small_batched at {len(CHOL_SMALL_SHAPES)} "
+        "shapes (every c from 1 to 32 at batches 1, 3, 133), NaN and +Inf "
+        f"junk, {len(CHOL_SMALL_OFFSET)} unaligned shapes and a negative "
+        "pivot: max abs err "
         + ", ".join(f"{d} {v:.3e}" for d, v in cerr.items())
         + f" ({time.perf_counter() - t0:.1f} s); f32 timing "
         + json.dumps(rows["cholesky_small_batched"]))

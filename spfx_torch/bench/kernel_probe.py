@@ -1,10 +1,12 @@
-"""Probe ``getrf_inv``, ``potrf_inv``, ``extend_add_rows`` and
-``syrk_gemm_batched`` on the card: where a launch's time goes, by timing
-copies of the kernel's source with parts cut out.
+"""Probe ``getrf_inv``, ``potrf_inv``, ``extend_add_rows``,
+``syrk_gemm_batched`` and ``cholesky_small_batched`` on the card: where a
+launch's time goes, by timing copies of the kernel's source with parts cut
+out.
 
     python -m spfx_torch.bench.kernel_probe getrf|potrf [plan] [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe extend [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe syrk [SOURCE ...]
+    python -m spfx_torch.bench.kernel_probe chol_small [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe div
 
 - ``getrf`` and ``potrf``: device time per launch of ``getrf_inv`` or
@@ -29,6 +31,13 @@ copies of the kernel's source with parts cut out.
   path at the panel bench's size (2^16 items, n = m = 64, k = 32, f32),
   whole and with its products, its stores or its loads cut
   (``SYRK_CUTS``);
+- ``chol_small``: device time per launch of ``cholesky_small_batched`` at
+  (batch, c) = (65,536, 32) and (65,536, 16), f32 and f64, beside each
+  shape's byte bound (each lower triangle read, each factor written, over
+  3.35 TB/s), whole and with its parts cut (``CHOL_SMALL_CUTS``: one
+  value stored a lane in place of L, no factorization, no loads, an empty
+  body at the design's grid, every column step of the row width run
+  where the kernel would stop at c);
 - ``div``: the f32 division that ``getrf_inv`` takes (``quot`` in
   csrc/diag_block.cuh) against the card's IEEE division, bit for bit over
   2^26 seeded operand pairs of each of ``DIV_RANGES`` (counting the pairs
@@ -40,7 +49,8 @@ Each copy is the kernel's source under ``csrc/`` with text edits, built
 with nvcc (all copies at once) and loaded with ctypes; a cut copy's
 outputs are wrong, the point is the time each part holds a launch. The
 whole copy is first checked against the plain version (getrf, potrf:
-1e-4 f32, 1e-12 f64 of the largest plain output; extend: 1e-6 of the
+1e-4 f32, 1e-12 f64 of the largest plain output; chol_small the same,
+and exact zeros above the diagonal; extend: 1e-6 of the
 slab's largest entry; syrk: 1e-5). Further SOURCE files (another version
 of the same kernel, say the parent commit's) are built, checked and timed
 whole beside it, in the same process, so two designs are compared on one
@@ -114,6 +124,17 @@ SYRK_CUTS = [
     ("no stores", [("kStores = true", "kStores = false")]),
     ("loads replaced by a constant", [("kLoads = true", "kLoads = false")]),
 ]
+
+# the same for csrc/chol_small.cu
+CHOL_SMALL_CUTS = [
+    ("whole", []),
+    ("one value stored a lane", [("kStore = true", "kStore = false")]),
+    ("staging and stores only", [("kFactor = true", "kFactor = false")]),
+    ("factorization with no loads", [("kStage = true", "kStage = false")]),
+    ("empty body, the design's grid", [("kBody = true", "kBody = false")]),
+    ("every column step run", [("kStopAtC = true", "kStopAtC = false")]),
+]
+CHOL_SMALL_SHAPES = ((65536, 32), (65536, 16))   # (batch, c)
 
 
 # (biased exponent range of a, of b, share of zero numerators)
@@ -618,11 +639,78 @@ def syrk(extra=()) -> bool:
     return ok
 
 
+def chol_small_inputs(batch: int, c: int, dtype):
+    """Seeded SPD (batch, c, c) blocks X X^T + c I on the card, with junk
+    above the diagonal (never read)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(batch + c)
+    X = torch.randn(batch, c, c, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    D = X @ X.transpose(1, 2) + c * torch.eye(c, device="cuda",
+                                              dtype=torch.float64)
+    D += torch.triu(torch.randn(batch, c, c, generator=gen, device="cuda",
+                                dtype=torch.float64) * 100.0, 1)
+    return D.to(dtype)
+
+
+def chol_small(extra=()) -> bool:
+    """The ``chol_small`` mode (see the module docstring)."""
+    from spfx_torch.kernels import chol_small as cs
+    libs = build("chol_small.cu", CHOL_SMALL_CUTS, extra)
+    ok = True
+    for td in (torch.float32, torch.float64):
+        t = "f32" if td == torch.float32 else "f64"
+        name_of = f"spfx_cholesky_small_batched_{t}"
+        fns = [(name, entry(lib, [name_of],
+                            _cuda._SIGNATURES["chol_small"][name_of]))
+               for name, lib in libs]
+        for batch, c in CHOL_SMALL_SHAPES:
+            D = chol_small_inputs(batch, c, td)
+            L = torch.empty_like(D)
+            ref = cs.cholesky_small_batched_plain(D)
+            tol = (1e-4 if td == torch.float32 else 1e-12) * max(
+                float(ref.abs().max()), 1.0)
+            bound = (batch * (c * (c + 1) / 2 + c * c) * D.element_size()
+                     / 3.35e12 * 1e3)
+            print(f"chol_small {t} ({batch}, {c}): bound {bound:.4f} ms "
+                  "(bytes)", flush=True)
+            for k, (name, fn) in enumerate(fns):
+                def run(fn=fn):
+                    rc = fn(D.data_ptr(), L.data_ptr(), batch, c, stream())
+                    if rc:
+                        raise RuntimeError(f"{name!r}: CUDA error {rc}")
+                line = f"chol_small {t} ({batch}, {c}) {name}: "
+                if name == "whole" or k >= len(CHOL_SMALL_CUTS):
+                    L.fill_(float("nan"))
+                    run()
+                    torch.cuda.synchronize()
+                    err = float((L - ref).abs().max())
+                    good = err <= tol and bool((torch.triu(L, 1) == 0).all())
+                    ok &= good
+                    line += (f"err {err:.3e} tol {tol:.3e} "
+                             f"{'OK' if good else 'FAIL'}, ")
+                ms = time_ms(run, reps=20)
+                print(line + f"{ms:.4f} ms, {bound / ms:.1%} of the bound",
+                      flush=True)
+            # the card's copy rate on these bytes and more: D read whole
+            # and written whole
+            ms = time_ms(lambda: L.copy_(D), reps=20)
+            print(f"chol_small {t} ({batch}, {c}) torch copy_ of D into L "
+                  f"(every value read and written): {ms:.4f} ms", flush=True)
+            del D, L, ref
+            torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 2
     from spfx_torch.chol.factorize import matmul_precision
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card or torch.cuda.get_device_name(0)}", flush=True)
     mode = argv[0] if argv else "getrf"
     rest = argv[1:]
     with matmul_precision("highest"):
@@ -630,7 +718,8 @@ def main(argv) -> int:
             plan = rest[:1] == ["plan"]
             ok = diag(mode, rest[1:] if plan else rest, plan=plan)
         else:
-            ok = {"extend": extend, "syrk": syrk, "div": div}[mode](rest)
+            ok = {"extend": extend, "syrk": syrk, "chol_small": chol_small,
+                  "div": div}[mode](rest)
     return 0 if ok else 1
 
 

@@ -5,8 +5,10 @@ Port of ``cholesky_small_batched`` (spfx/kernels/pallas_blocks.py):
 the lower Cholesky factors (batch, c, c) with exact zeros above the
 diagonal; float32 and float64.
 
-- Only D's lower triangle is read: the TPU kernel's result does not depend
-  on the upper part either.
+- Only D's lower triangle is read. The TPU kernel's result ignores finite
+  values above the diagonal too, but NaN or Inf there reaches its L
+  (column j comes out of a one-hot contraction over whole rows, and
+  NaN * 0 is NaN); the port's does not.
 - A non-positive pivot gives NaN, as the TPU kernel's rsqrt does; nothing
   is checked.
 - The JAX kernel's ``slab`` (tasks a grid step keeps in VMEM) has no

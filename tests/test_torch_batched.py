@@ -126,6 +126,54 @@ def test_cholesky_small_matches_pallas(batch, c, slab, dtype, tol):
                                atol=10 * tol * np.abs(Dd).max())
 
 
+@pytest.mark.parametrize("batch", [1, 3, 64])
+def test_cholesky_small_every_c_matches_torch(batch):
+    """The plain version against torch.linalg.cholesky at every c from 1
+    to 32, f64, within 1e-12 of max |L|: the same factor, sums in other
+    orders."""
+    for c in range(1, 33):
+        D = torch.from_numpy(_spd_blocks(batch, c, 100 + c))
+        L = chol_small.cholesky_small_batched(D)
+        ref = torch.linalg.cholesky(D)
+        assert L.shape == (batch, c, c) and L.dtype == torch.float64
+        tol = 1e-12 * float(ref.abs().max())
+        assert float((L - ref).abs().max()) <= tol, c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cholesky_small_nan_inf_junk(dtype):
+    """NaN above the diagonal of half the matrices and +Inf above that of
+    a quarter, at (32, 8): the port's L is bit for bit its L of the clean
+    input, and within the tolerances of test_cholesky_small_matches_pallas
+    of the Pallas kernel's L of the clean input (slab 16). The Pallas
+    kernel itself pulls column j out with a one-hot contraction over whole
+    rows, so the junk reaches its L (NaN * 0 is NaN) in exactly the
+    matrices that hold NaN or Inf: asserted too, so that the port's
+    stronger contract stays a recorded difference."""
+    npd, td = DTYPES[dtype]
+    tol = 1e-5 if dtype == "float32" else 1e-13
+    batch, c = 32, 8
+    D = _spd_blocks(batch, c, 7).astype(npd)
+    Dj = D.copy()
+    up = np.triu(np.ones((c, c), bool), 1)
+    Dj[0::2][:, up] = np.nan
+    Dj[1::4][:, up] = np.inf
+    L = chol_small.cholesky_small_batched(torch.from_numpy(D))
+    Lj = chol_small.cholesky_small_batched(torch.from_numpy(Dj))
+    assert Lj.dtype == td
+    assert torch.equal(Lj, L)
+    P = np.asarray(pallas_blocks.cholesky_small_batched(jnp.asarray(D),
+                                                        slab=16))
+    np.testing.assert_allclose(Lj.numpy(), P, rtol=0,
+                               atol=tol * np.abs(P).max())
+    Pj = np.asarray(pallas_blocks.cholesky_small_batched(jnp.asarray(Dj),
+                                                         slab=16))
+    junk = np.zeros(batch, bool)
+    junk[0::2] = junk[1::4] = True
+    assert np.isnan(Pj[junk][:, ~up]).all()
+    np.testing.assert_array_equal(Pj[~junk], P[~junk])
+
+
 def test_cholesky_small_contract():
     """c from 1 to 32 works, a non-positive pivot gives NaN, c = 33 and a
     non-square or non-float input raise."""

@@ -177,7 +177,8 @@ def test_every_source_is_bound():
     ("getrf_inv.cu", kernel_probe.GETRF_CUTS),
     ("syrk_gemm.cu", kernel_probe.SYRK_CUTS),
     ("potrf_inv.cu", kernel_probe.POTRF_CUTS),
-    ("extend_add.cu", kernel_probe.EXTEND_CUTS)])
+    ("extend_add.cu", kernel_probe.EXTEND_CUTS),
+    ("chol_small.cu", kernel_probe.CHOL_SMALL_CUTS)])
 def test_probe_cuts_apply(source, cuts):
     """Every edit of every cut of kernel_probe finds its text exactly once
     in the files it edits (the source and the csrc headers), so that a
