@@ -45,25 +45,45 @@ non-zero):
    plain version has them; times against torch.linalg.cholesky_ex at
    (65,536, 32);
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
-   default Config, launch counts against the plan (window_gather2 once per
-   UT step and factor array, extend_add_rows once per UT step: LU's twin
-   entry takes both arrays), factorization
-   times, GFLOP/s, peak memory, and the refined solve's scaled residual
-   (<= 1e-12);
+   default Config, whose engine "mega" captures the walk into a CUDA
+   graph at the first factorization (an eager warm-up first) and replays
+   it after: the capture's launch counts against the plan (window_gather2
+   once per UT step and factor array, extend_add_rows once per UT step:
+   LU's twin entry takes both arrays), the first factorization's at
+   twice that (warm-up and capture), and each of 5 steady factorizations
+   one replay with the counters unmoved; the first factorization split
+   into warm-up, capture and first replay, the steady wall (median),
+   entry_values' host time, GFLOP/s, peak memory and the memory held
+   after the first factorization; the graph factor against the eager
+   walk's (trace_fn, what engine="calls" runs) on the same entry values,
+   within 1e-5 (f32) or 1e-12 (f64) of each array's largest entry; the
+   refined solve's scaled residual (<= 1e-12); and (the "graph" report)
+   one replay's profiled device time against the eager walk's, the
+   device-busy share, the replay between CUDA events, the first factor
+   bit for bit unchanged by factorizing 2A on the same context, and
+   run_repeat's slope between 1 and 4 replays; (the "solve" report) the
+   same factor's device solve (solve_backend="device"): its time beside
+   the host solve's, its unrefined residual and distance from the host
+   solution, its refined residual (<= 1e-12);
 4b. LU main path: spfx_torch.LU(laplacian_3d(48)) with the default Config,
-   the same checks;
+   the same checks and reports;
 4c. the same two factorizations with SPFX_PANEL_KERNEL=lanes, then =wide:
-   launches against the route-aware prediction (every PC step one launch
-   of the route's kernel), one timed repeat;
-5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12;
+   a graph per mode, the capture's launches against the route-aware
+   prediction (every PC step one launch of the route's kernel), the graph
+   against the eager walk;
+5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12,
+   with the device solve report;
 5b. f64 LU at 32^3 with unsymmetric values (every entry above the diagonal
    of laplacian_3d(32) scaled by a factor from U[0.25, 1]), residual
-   <= 1e-12;
+   <= 1e-12, with the device solve report;
 5c. the 32^3 f64 Cholesky under lanes and the unsymmetric 32^3 f64 LU
    under wide, residual <= 1e-12 without refinement;
 6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
 6b. the same for LU, on the unsymmetric 12^3 matrix, both flat factors;
 6c. the same for both kinds under SPFX_PANEL_KERNEL=lanes, wide and mixed;
+6e. the surfaces at 12^3: the CLI (both kinds, factors saved), the saved
+   factors loaded onto the card and solved (host and device solve), and
+   the profile scope's trace;
 6d. syrk_gemm_batched against its plain version at seeded shapes that
    reach both of its paths, f32 and f64; then the panel bench,
    spfx_torch.bench.panels.main() at its full size (2^16
@@ -74,9 +94,9 @@ non-zero):
 7. the ``kernels`` JSON line (eleven kernels), the nvidia-smi line, then
    the final ``ok`` JSON line.
 
-``--profile`` adds a torch.profiler pass over one 48^3 factorization of
-each kind under each route (default, lanes, wide), prints each one's
-device time, and writes their kernel tables to
+``--profile`` adds a torch.profiler pass over one 48^3 factorization (a
+graph replay) of each kind under each route (default, lanes, wide),
+prints each one's device time, and writes their kernel tables to
 chiprun_out/chip_smoke_profile{,_lu}{,_lanes,_wide}.txt.
 
 It needs one CUDA device and the spfx_torch package next to it; without
@@ -1226,7 +1246,7 @@ def check_syrk_gemm(dev, gen):
     k-term dot products summed in other orders. Returns ({dtype: largest
     |kernel - plain|}, {path: calls})."""
     import torch
-    from spfx_torch.chol.factorize import matmul_precision
+    from spfx_torch.kernels.mega import matmul_precision
     from spfx_torch.kernels import syrk_gemm
     worst, paths = {}, {}
     with matmul_precision("highest"):
@@ -1265,7 +1285,7 @@ def panel_bench(dev):
     launches, timing row, largest |kernel - einsum|)."""
     import torch
     from spfx_torch.bench import panels
-    from spfx_torch.chol.factorize import matmul_precision
+    from spfx_torch.kernels.mega import matmul_precision
     from spfx_torch.kernels import _cuda, syrk_gemm
     _cuda.reset_launch_counts()
     gflops = panels.main()
@@ -1374,37 +1394,85 @@ def factor_arrays(f):
     return (f.Lx, f.Ux) if hasattr(f, "Ux") else (f.L,)
 
 
-def main_path(ctx, A, label: str, repeats: int = 3,
-              unrefined_limit: float | None = None):
-    """Factorize (launch counts checked against the plan: every kernel of
-    the path launched, as often as the plan says), time repeats, solve
-    with refinement (and, given ``unrefined_limit``, check the residual
-    without refinement against it); returns (factor, launches, report)."""
+def main_path(ctx, A, label: str, repeats: int = 5,
+              unrefined_limit: float | None = None,
+              extras: tuple = ()):
+    """Factorize through the context's runner: on a panel mode's first
+    factorization the runner warms up and captures its graph, so the
+    capture's launch counts are held against the plan (every kernel of the
+    path launched, as often as the plan says) and the run's own counts,
+    warm-up and capture, against twice that. Then ``repeats`` steady
+    factorizations, each one replay with the counters unmoved (median
+    wall); ``entry_values``' host time; the graph factor against the eager
+    walk's (``trace_fn``, what engine="calls" runs) on the same entry
+    values, within 1e-5 (f32) or 1e-12 (f64) of each array's largest
+    entry; the refined solve (and, given ``unrefined_limit``, the residual
+    without refinement against it). ``extras``: "graph" adds
+    ``graph_report``, "solve" ``device_solve_report``. Returns (factor,
+    launches, the capture's launches, report)."""
     import torch
     from spfx_torch import scaled_residual, synth_rhs
-    from spfx_torch.kernels import _cuda
+    from spfx_torch.kernels import _cuda, route
+    mode = route.panel_mode()
+    fresh = ctx._runner is None or mode not in ctx._runner.captures
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     _cuda.reset_launch_counts()
     f = ctx.factorize(A)
     launches = _cuda.launch_counts()
     first = ctx.factorize_time
+    held = torch.cuda.memory_allocated() - mem0
+    runner = ctx._runner
+    cap = runner.captures[mode]
     want = predicted_launches(ctx)
-    if launches != want:
-        fail(f"{label}: launches {launches}, the plan predicts {want}")
-    if not all(launches[k] > 0 for k, v in want.items() if v):
+    if cap["launches"] != want:
+        fail(f"{label}: the capture launched {cap['launches']}, the plan "
+             f"predicts {want}")
+    twice = {k: 2 * v if fresh else 0 for k, v in want.items()}
+    if launches != twice:
+        fail(f"{label}: the first factorization launched {launches}; its "
+             f"warm-up and capture should launch {twice}")
+    if fresh and not all(launches[k] > 0 for k, v in want.items() if v):
         fail(f"{label}: a kernel of the path was not launched: {launches}")
     ts = []
     for _ in range(repeats):
+        replays = runner.replays
+        _cuda.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         f = ctx.factorize(A)
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
+        moved = {k: v for k, v in _cuda.launch_counts().items() if v}
+        if runner.replays != replays + 1 or moved:
+            fail(f"{label}: a steady factorization was "
+                 f"{runner.replays - replays} replays and launched {moved}")
     med = statistics.median(ts)
     peak = torch.cuda.max_memory_allocated()
     if not all(bool(torch.isfinite(t).all()) for t in factor_arrays(f)):
         fail(f"{label}: factor has non-finite values")
+    t0 = time.perf_counter()
+    vals = ctx.entry_values(A)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    vals = vals if is_lu(ctx) else (vals,)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = runner.trace_fn()(*vals)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = eager if is_lu(ctx) else (eager,)
+    tol = 1e-5 if ctx.config.dtype == "float32" else 1e-12
+    graph_err = {}
+    for name, g, e in zip(("Lx", "Ux") if is_lu(ctx) else ("L",),
+                          factor_arrays(f), eager):
+        scale = float(e.abs().max())
+        graph_err[name] = max_diff(g, e) / scale
+        if not graph_err[name] <= tol:
+            fail(f"{label}: the graph's {name} is {graph_err[name]:.3e} of "
+                 f"its largest entry from the eager walk's (limit {tol:g})")
+    del eager, vals
     b = synth_rhs(A)
     t0 = time.perf_counter()
     x0 = f.solve(b, refine=0)
@@ -1413,17 +1481,137 @@ def main_path(ctx, A, label: str, repeats: int = 3,
     r0 = scaled_residual(A, x0, b)
     res = scaled_residual(A, x, b)
     rep = dict(plan_summary(ctx), analyze_s=ctx.analyze_time, plan_s=ctx.plan_time,
-               first_factorize_s=first, factorize_s=med, factorize_all_s=ts,
+               first_factorize_s=first, warmup_s=cap["warmup_s"],
+               capture_s=cap["capture_s"],
+               first_replay_s=cap["first_replay_s"], factorize_s=med,
+               factorize_all_s=ts, entry_values_s=entry_s,
+               eager_walk_s=eager_s, graph_vs_eager=graph_err,
                gflops=ctx.plan.flops / med / 1e9, peak_mem_gb=peak / 1e9,
+               held_mem_gb=held / 1e9,
+               reserved_mem_gb=torch.cuda.memory_reserved() / 1e9,
                solve_s=solve_s, residual_norefine=r0, residual=res,
-               launches=launches)
+               launches=launches, graph_launches=cap["launches"])
+    if "graph" in extras:
+        rep.update(graph_report(ctx, A, f, med, mode, label))
+    if "solve" in extras:
+        rep.update(device_solve_report(ctx, A, f, label))
     log(f"[{label}] " + json.dumps(rep))
     if not res <= 1e-12:
         fail(f"{label}: scaled residual {res:.3e} > 1e-12")
     if unrefined_limit is not None and not r0 <= unrefined_limit:
         fail(f"{label}: scaled residual without refinement {r0:.3e} > "
              f"{unrefined_limit:g}")
-    return f, launches, rep
+    return f, launches, cap["launches"], rep
+
+
+def profiled_ms(fn):
+    """(device ms, kernel names) of one call of ``fn`` under
+    torch.profiler (CUDA activity only): the sum of its kernels' self
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return cuda_self_ms(events), [
+        e.key for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def graph_report(ctx, A, f, steady_s: float, mode: str, label: str) -> dict:
+    """One replay's profiled device time against one eager walk's on the
+    same entry values (the profiler must attribute the graph's kernels:
+    the window gathers are in every path, and the two device times agree
+    within 10%), the device-busy share of a
+    steady factorization (replay device time over its median wall), the
+    replay alone between CUDA events, the first factor bit for bit
+    unchanged by a factorization of 2A on the same context, and
+    run_repeat's slope between 1 and 4 replays."""
+    import torch
+    runner = ctx._runner
+    g = runner._graphs[mode]
+    replay_ms, names = profiled_ms(g.graph.replay)
+    eager_ms, _ = profiled_ms(lambda: runner.trace_fn()(*g.inputs))
+    if not any("window_gather" in n for n in names):
+        fail(f"{label}: the profiler shows no window gather in a replay: "
+             f"{names[:10]}")
+    if not 0.9 <= replay_ms / eager_ms <= 1.1:
+        fail(f"{label}: a replay's device time {replay_ms:.3f} ms is not "
+             f"within 10% of the eager walk's {eager_ms:.3f} ms")
+    ev = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.graph.replay()
+        b.record()
+        b.synchronize()
+        ev.append(a.elapsed_time(b))
+    keep = [t.clone() for t in factor_arrays(f)]
+    f2 = ctx.factorize(2 * A)
+    if not all(torch.equal(t, k) for t, k in zip(factor_arrays(f), keep)):
+        fail(f"{label}: factorizing 2A changed the first factor")
+    if torch.equal(factor_arrays(f2)[0], keep[0]):
+        fail(f"{label}: the factor of 2A is the factor of A")
+    del f2, keep
+    vals = ctx.entry_values(A)
+    vals = vals if is_lu(ctx) else (vals,)
+
+    def wall(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run_repeat(reps, *vals)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    w1 = statistics.median(wall(1) for _ in range(3))
+    w4 = statistics.median(wall(4) for _ in range(3))
+    return dict(replay_device_ms=replay_ms, eager_device_ms=eager_ms,
+                replay_over_eager_device=replay_ms / eager_ms,
+                replay_kernel_names=len(names),
+                device_busy_share=replay_ms / 1e3 / steady_s,
+                replay_event_ms=statistics.median(ev),
+                run_repeat_1_s=w1, run_repeat_4_s=w4,
+                run_repeat_slope_s=(w4 - w1) / 3)
+
+
+def device_solve_report(ctx, A, f, label: str) -> dict:
+    """The same factor with Config(solve_backend="device"): its unrefined
+    solve (the first call captures the solve graph, a second replays it)
+    beside the host solve's, the largest difference between the two
+    unrefined solutions relative to the host's largest entry, and the
+    refined residual (<= 1e-12)."""
+    import dataclasses
+    import numpy as np
+    from spfx_torch import (CholeskyFactor, LUFactor, scaled_residual,
+                            synth_rhs)
+    cfg = dataclasses.replace(f.config, solve_backend="device")
+    if is_lu(ctx):
+        fd = LUFactor(f.A, f.sym, f.plan, f.Lx, f.Ux, cfg,
+                      solver=ctx._solver, row_perm=f.row_perm)
+    else:
+        fd = CholeskyFactor(f.A, f.sym, f.plan, f.L, cfg,
+                            solver=ctx._solver)
+    b = synth_rhs(A)
+    times = {}
+    for key, fn in (("device_solve_first_s", fd), ("device_solve_s", fd),
+                    ("host_solve_s", f)):
+        t0 = time.perf_counter()
+        x = fn.solve(b, refine=0)
+        times[key] = time.perf_counter() - t0
+        if fn is fd:
+            xd = x
+    xh = f.solve(b, refine=0)
+    res = scaled_residual(A, fd.solve(b), b)
+    rep = dict(times, device_residual_norefine=scaled_residual(A, xd, b),
+               device_residual=res,
+               device_vs_host_norefine=float(np.abs(xd - xh).max()
+                                             / np.abs(xh).max()))
+    if not res <= 1e-12:
+        fail(f"{label}: device solve's refined residual {res:.3e} > 1e-12")
+    return rep
 
 
 def profile_pass(ctx, A, name: str) -> float:
@@ -1446,6 +1634,67 @@ def profile_pass(ctx, A, name: str) -> float:
     log(f"[profile] {name}: device time {device_ms:.3f} ms (kernel table "
         f"in chiprun_out/{name}.txt)")
     return device_ms
+
+
+def surfaces(dev) -> None:
+    """The CLI (``spfx_torch.__main__.main``) on laplacian_3d(GRID_CPU)
+    and its unsymmetric variant written as MatrixMarket files under
+    chiprun_out/surfaces, f32, both kinds, each factor saved
+    (--save-factor): rc 0 and one residual line each; both factors loaded
+    back onto the card (``spfx_torch.checkpoint.load_factor``), their
+    refined solves' residuals <= 1e-12 on the host and on the device
+    solve; and one factorization under Config(profile=True) with
+    SPFX_PROFILE_DIR set, which must write one Chrome trace."""
+    import contextlib
+    import dataclasses
+    import glob
+    import io
+    import shutil
+    import spfx_torch
+    import spfx_torch.__main__ as cli
+    from spfx_torch import checkpoint, scaled_residual, synth_rhs
+    from spfx_torch.io import generate, matrix_market
+    d = os.path.join(ROOT, "chiprun_out", "surfaces")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    mats = {"spd.mtx": generate.laplacian_3d(GRID_CPU),
+            "unsym.mtx": unsym_laplacian(GRID_CPU)}
+    for name, M in mats.items():
+        matrix_market.write_matrix(os.path.join(d, name), M,
+                                   symmetric=name == "spd.mtx")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([os.path.join(d, n) for n in mats]
+                      + ["--dtype", "float32", "--save-factor", d])
+    text = out.getvalue()
+    log("[surfaces] " + " | ".join(text.strip().splitlines()))
+    if rc != 0 or text.count("residual") != 2 or "engine=lu" not in text:
+        fail(f"CLI: rc {rc}, output {text!r}")
+    for name, M in mats.items():
+        f = checkpoint.load_factor(os.path.join(d, name + ".factor.npz"))
+        arrays = (f.Lx, f.Ux) if hasattr(f, "Ux") else (f.L,)
+        if any(t.device.type != "cuda" for t in arrays):
+            fail(f"load_factor placed {name}'s factor off the card")
+        b = synth_rhs(M)
+        fd = dataclasses.replace(f.config, solve_backend="device")
+        for cfg in (f.config, fd):
+            f.config = cfg
+            res = scaled_residual(M, f.solve(b), b)
+            if not res <= 1e-12:
+                fail(f"loaded {name} ({cfg.solve_backend} solve): "
+                     f"residual {res:.3e}")
+    old = os.environ.get("SPFX_PROFILE_DIR")
+    os.environ["SPFX_PROFILE_DIR"] = d
+    try:
+        spfx_torch.cholesky(mats["spd.mtx"], spfx_torch.Config(profile=True),
+                            device=dev)
+    finally:
+        os.environ.pop("SPFX_PROFILE_DIR")
+        if old is not None:
+            os.environ["SPFX_PROFILE_DIR"] = old
+    traces = glob.glob(os.path.join(d, "factorize", "*.json"))
+    if len(traces) != 1:
+        fail(f"profile scope wrote {len(traces)} traces")
 
 
 def unsym_laplacian(k: int):
@@ -1635,6 +1884,7 @@ def main(argv) -> int:
     # 4. Cholesky main path, 48^3 f32 with the default Config; 4c. the same
     # under SPFX_PANEL_KERNEL=lanes, then wide
     paths = {}
+    graph_paths = {}
     device_ms = {}
     for lu, c, kind in ((False, ctx, "cholesky"), (True, lctx, "lu")):
         for mode in (None, "lanes", "wide"):
@@ -1642,8 +1892,9 @@ def main(argv) -> int:
             label = (("LU " if lu else "main ") + f"{GRID}^3 float32"
                      + ("" if mode is None else f" {mode}"))
             with panel_env(mode):
-                _, paths[path], _ = main_path(
-                    c, A, label, repeats=3 if mode is None else 1)
+                _, paths[path], graph_paths[path], _ = main_path(
+                    c, A, label,
+                    extras=("graph", "solve") if mode is None else ())
                 if "--profile" in argv:
                     device_ms[path] = profile_pass(
                         c, A, "chip_smoke_profile" + ("_lu" if lu else "")
@@ -1656,9 +1907,9 @@ def main(argv) -> int:
     # 5. f64 at 32^3; 5c. the same under lanes, without refinement
     A32 = generate.laplacian_3d(GRID_F64)
     ctx64 = spfx_torch.Cholesky(A32, Config(dtype="float64"), device=dev)
-    main_path(ctx64, A32, f"f64 {GRID_F64}^3 float64")
+    main_path(ctx64, A32, f"f64 {GRID_F64}^3 float64", extras=("solve",))
     with panel_env("lanes"):
-        main_path(ctx64, A32, f"f64 {GRID_F64}^3 float64 lanes", repeats=1,
+        main_path(ctx64, A32, f"f64 {GRID_F64}^3 float64 lanes",
                   unrefined_limit=1e-12)
     del ctx64
 
@@ -1669,10 +1920,11 @@ def main(argv) -> int:
     log(f"[plan] LU unsym {GRID_F64}^3 analyze {lctx64.analyze_time:.2f} s "
         f"plan {lctx64.plan_time:.2f} s, max |A - A^T| "
         f"{abs(A32u - A32u.T).max():.3f}")
-    main_path(lctx64, A32u, f"LU unsym {GRID_F64}^3 float64")
+    main_path(lctx64, A32u, f"LU unsym {GRID_F64}^3 float64",
+              extras=("solve",))
     with panel_env("wide"):
         main_path(lctx64, A32u, f"LU unsym {GRID_F64}^3 float64 wide",
-                  repeats=1, unrefined_limit=1e-12)
+                  unrefined_limit=1e-12)
     del lctx64
 
     # 6. the card against the CPU (plain versions), 12^3 f64, Cholesky and
@@ -1696,6 +1948,12 @@ def main(argv) -> int:
             if not rel <= 1e-10:
                 fail(f"card and CPU factors ({name}{tag}) differ by "
                      f"{rel:.3e}")
+
+    # 6e. the surfaces: CLI, checkpoints, profile scope
+    t0 = time.perf_counter()
+    surfaces(dev)
+    log(f"[surfaces] CLI, checkpoints and profile scope at {GRID_CPU}^3 "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # 6d. syrk_gemm_batched on both of its paths, then the panel bench,
     # its launches a path of its own
@@ -1741,6 +1999,7 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[own][name],
             "launches_by_path": {p: l[name] for p, l in paths.items()},
+            "graph_launches": graph_paths.get(own, {}).get(name),
             "max_abs_err": errs[(name, "float32")], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

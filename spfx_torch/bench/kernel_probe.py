@@ -387,7 +387,7 @@ def plan_extend_calls(plan, dev):
     """(slab_lo, srows, csp, rows) of every UT step of the plan: the
     step's slab of the flat factor and its row table (one entry per row of
     the step's E)."""
-    return [(int(ub.slab_lo[0]), ub.slab_rows, ub.csp, ub.rows_to(dev))
+    return [(int(ub.slab_lo[0]), ub.slab_rows, ub.csp, ub.to(dev)[6])
             for lp in plan.levels for ub in lp.updates]
 
 
@@ -706,7 +706,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 2
-    from spfx_torch.chol.factorize import matmul_precision
+    from spfx_torch.kernels.mega import matmul_precision
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

@@ -30,7 +30,8 @@ import time
 import numpy as np
 import torch
 
-from spfx_torch.chol.factorize import matmul_precision, resolve_device
+from spfx_torch.chol.factorize import resolve_device
+from spfx_torch.kernels.mega import matmul_precision
 from spfx_torch.kernels.syrk_gemm import syrk_gemm_batched
 
 BATCH = 1 << 16

@@ -7,8 +7,15 @@ values into one flat panel tensor and walks the plan's levels, in place:
 each level's UT update buckets (``blocks.apply_updates_sym_t``), then its
 PC panel buckets (``blocks.factor_panels_chol_u``), with the panel-kernel
 family that ``SPFX_PANEL_KERNEL`` selects, read once per factorization
-(``kernels/route.py``). The solve copies the factor back and runs the native f64 supernodal solve with iterative
-refinement on the host.
+(``kernels/route.py``). The walk is ``kernels.mega.MegaRunner``'s: with the
+default ``engine="mega"`` one CUDA-graph replay per factorization on the
+card, with ``engine="calls"`` the eager walk.
+
+The solve runs the native f64 supernodal solve on the copied-back factor
+(``solve_backend="host"``, and ``"auto"`` where the native library is
+there), or the level-batched triangular solves on the device
+(``kernels.mega.MegaSolver``; ``"device"``, and ``"auto"`` without the
+native library), with f64 iterative refinement on the host either way.
 
 Everything runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``"cpu"``, where every kernel wrapper takes its plain
@@ -18,27 +25,18 @@ points raise.
 
 from __future__ import annotations
 
-import contextlib
-import functools
-import sys
 import time
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
-from spfx_torch.kernels import blocks, route
+from spfx_torch.kernels.mega import _PRECISION, MegaRunner, MegaSolver
 from spfx_torch.plan.schedule import ALIGN, FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-# JAX matmul precision -> torch float32 matmul precision. "default" and
-# "bfloat16" (one bf16 pass on the TPU) become TF32, which is finer. JAX's
-# "high" is bf16x3 (~1e-6 relative); torch has no such mode, and TF32 (a
-# 10-bit mantissa) would be coarser, so check_config refuses it.
-_PRECISION = {"highest": "highest", "float32": "highest",
-              "default": "medium", "bfloat16": "medium"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,9 +63,8 @@ def check_config(config: Config) -> None:
             "complex dtypes are not ported (ROADMAP Queue 1 item 6)")
     if config.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {config.dtype!r}")
-    if config.solve_backend == "device":
-        raise NotImplementedError(
-            "solve_backend='device' is not ported (ROADMAP Queue 1 item 4)")
+    if config.solve_backend not in ("auto", "host", "device"):
+        raise ValueError(f"unknown solve_backend {config.solve_backend!r}")
     if config.fused or config.engine == "fused":
         raise NotImplementedError(
             "engine='fused' is not ported (ROADMAP Queue 1 item 6)")
@@ -80,21 +77,6 @@ def check_config(config: Config) -> None:
                 "Queue 1 item 6)")
         if p is not None and p not in _PRECISION:
             raise ValueError(f"unknown matmul precision {p!r}")
-
-
-@contextlib.contextmanager
-def matmul_precision(name: str):
-    """float32 matrix products at the JAX precision ``name`` ("highest":
-    full float32, no TF32), restored afterwards."""
-    old = torch.get_float32_matmul_precision()
-    old_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision(_PRECISION[name])
-    torch.backends.cuda.matmul.allow_tf32 = _PRECISION[name] != "highest"
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(old)
-        torch.backends.cuda.matmul.allow_tf32 = old_tf32
 
 
 def check_windows(plan: FactorPlan) -> None:
@@ -126,50 +108,50 @@ def check_windows(plan: FactorPlan) -> None:
                 raise ValueError("plan has an extend-add row past its slab")
 
 
-def update_precision(config: Config):
-    """The context for the UT update steps inside the walk's
-    ``matmul_precision(config.matmul_precision)``: a no-op unless
-    ``config.update_precision`` names another torch mode."""
-    upd = config.update_precision or config.matmul_precision
-    if _PRECISION[upd] == _PRECISION[config.matmul_precision]:
-        return contextlib.nullcontext
-    return functools.partial(matmul_precision, upd)
+def use_host_solve(config: Config) -> bool:
+    """Whether a factor solves on the host: ``solve_backend="host"``
+    (raises without the native library), or ``"auto"`` with the native
+    library there; otherwise on the device."""
+    from spfx_torch.symbolic import _native
+    if config.solve_backend == "device":
+        return False
+    ok = _native.available()
+    if config.solve_backend == "host" and not ok:
+        raise RuntimeError("host solve requested but the native planner "
+                           "library is missing")
+    return ok
 
 
-def finish_factorize(ctx, f, t0: float):
-    """Wait for the device, record the factorization's wall time since
-    ``t0`` on ``ctx``, then honour ``config.profile`` (a timing line on
-    stderr) and ``config.validate`` (the refined solve's scaled residual
-    as ``f.residual``, with a warning above 1e-8)."""
-    cfg = ctx.config
-    if ctx.device.type == "cuda":
-        torch.cuda.synchronize(ctx.device)
-    ctx.factorize_time = time.perf_counter() - t0
-    if cfg.profile:
-        print(f"[spfx_torch profile] analyze {ctx.analyze_time:.3f}s  "
-              f"plan {ctx.plan_time:.3f}s  "
-              f"factorize {ctx.factorize_time:.3f}s  "
-              f"({ctx.plan.flops / max(ctx.factorize_time, 1e-12) / 1e9:.1f}"
-              " GFLOP/s)", file=sys.stderr, flush=True)
-    if cfg.validate:
-        from spfx_torch.validate import scaled_residual, synth_rhs
-        b = synth_rhs(f.A)
-        f.residual = scaled_residual(f.A, f.solve(b), b)
-        if not f.residual < 1e-8:
-            print(f"[spfx_torch] WARNING: scaled residual "
-                  f"{f.residual:.3e} exceeds 1e-8 validation gate",
-                  file=sys.stderr, flush=True)
-    return f
+def device_solve(f, F, G, b: np.ndarray) -> np.ndarray:
+    """One forward (over F) and backward (over G) supernodal solve pass of
+    factor ``f`` on its device, in the factor's dtype: b permuted by
+    ``f._inperm`` on the way in and by ``sym.perm`` on the way out. The
+    factor's ``MegaSolver`` is made at first use if the factor has none;
+    its solve graphs stay on the factor."""
+    n = f.sym.n
+    squeeze = b.ndim == 1
+    b2 = np.asarray(b).reshape(n, -1)
+    xp = np.zeros((n + 1, b2.shape[1]), dtype=f.config.dtype)
+    xp[:n] = b2[f._inperm]
+    if f._solver is None:
+        f._solver = MegaSolver(f.plan, lu=hasattr(f, "Ux"), config=f.config,
+                               device=F.device)
+    x = f._solver.solve(F, G, torch.from_numpy(xp).to(F.device),
+                        f._solve_graphs)
+    xh = x[:n].cpu().numpy()
+    out = np.empty_like(xh)
+    out[f.sym.perm] = xh
+    return out[:, 0] if squeeze else out
 
 
 def refined_solve(solve1, A, config: Config, b, refine: int | None):
-    """Solve A x = b with ``solve1`` (the factor's host f64 solve), then
+    """Solve A x = b with ``solve1`` (the factor's host or device solve), then
     ``refine`` sweeps of f64 iterative refinement against A (the
     config's ``refine_iters`` when None), stopping early once the residual
     is under ``config.refine_tol``."""
     refine = config.refine_iters if refine is None else refine
     b = np.asarray(b).astype(np.float64)
-    x = solve1(b)
+    x = solve1(b).astype(np.float64)
     if refine <= 0:
         return x
     bn = np.abs(b).max() + 1e-300
@@ -177,21 +159,24 @@ def refined_solve(solve1, A, config: Config, b, refine: int | None):
         r = b - A @ x
         if np.abs(r).max() / bn < config.refine_tol:
             break
-        x = x + solve1(r)
+        x = x + solve1(r).astype(np.float64)
     return x
 
 
 class CholeskyFactor:
     """Factorized P A P^T = L L^T: the flat panel tensor ``L`` on the
-    context's device, with the host f64 solve."""
+    context's device, with the host or the device solve."""
 
     def __init__(self, A: sp.spmatrix, sym: Symbolic, plan: FactorPlan,
-                 L: torch.Tensor, config: Config):
+                 L: torch.Tensor, config: Config, solver=None):
         self.A = sp.csc_matrix(A)
         self.sym = sym
         self.plan = plan
         self.L = L
         self.config = config
+        self._solver = solver      # the context's MegaSolver, if given
+        self._solve_graphs = {}    # nrhs -> the device solve's graph
+        self._inperm = sym.perm
         self._Lh = None
 
     def host_factor(self) -> np.ndarray:
@@ -202,12 +187,12 @@ class CholeskyFactor:
 
     # -- solves -----------------------------------------------------------
 
+    def _use_host_solve(self) -> bool:
+        return use_host_solve(self.config)
+
     def _solve_host(self, b: np.ndarray) -> np.ndarray:
         """Native C++ supernodal solve on the copied-back factor (f64)."""
         from spfx_torch.symbolic import _native
-        if not _native.available():
-            raise RuntimeError("spfx_torch solve needs the native planner "
-                               "library (no device solve yet)")
         Lh = self.host_factor()
         n = self.sym.n
         squeeze = b.ndim == 1
@@ -219,9 +204,15 @@ class CholeskyFactor:
             out[self.sym.perm, j] = x
         return out[:, 0] if squeeze else out
 
+    def _solve_device(self, b: np.ndarray) -> np.ndarray:
+        """One forward+backward supernodal solve pass on the device."""
+        return device_solve(self, self.L, self.L, b)
+
     def solve(self, b: np.ndarray, refine: int | None = None) -> np.ndarray:
         """Solve A x = b with f64 iterative refinement (mixed precision)."""
-        return refined_solve(self._solve_host, self.A, self.config, b, refine)
+        solve1 = self._solve_host if self._use_host_solve() \
+            else self._solve_device
+        return refined_solve(solve1, self.A, self.config, b, refine)
 
     # -- introspection ----------------------------------------------------
 
@@ -285,7 +276,8 @@ class Cholesky:
         self.plan = build_plan(self.sym, A, config)
         self.plan_time = time.perf_counter() - t0
         check_windows(self.plan)
-        self._asm_idx = None
+        self._runner = None
+        self._solver = None
 
     def entry_values(self, A: sp.spmatrix) -> torch.Tensor:
         """Permuted lower-triangle entry values — the only data that crosses
@@ -296,36 +288,22 @@ class Cholesky:
                                device=self.device)
 
     def factorize(self, A: sp.spmatrix) -> CholeskyFactor:
+        from spfx_torch.utils.instrument import finish_factorize, profile_scope
         A = sp.csc_matrix(A)
-        cfg = self.config
-        dev = self.device
-        mode = route.panel_mode()      # SPFX_PANEL_KERNEL, once a call
         t0 = time.perf_counter()
         vals = self.entry_values(A)
-        if self._asm_idx is None:
-            self._asm_idx = torch.as_tensor(
-                self.plan.assembly_idx.astype(np.int64), device=dev)
-        L = blocks.assemble(self._asm_idx, vals, self.plan.storage)
-        upd_ctx = update_precision(cfg)
-        with matmul_precision(cfg.matmul_precision):
-            for lp in self.plan.levels:
-                # left-looking: drain this level's pending updates, then
-                # factor its panels
-                with upd_ctx():
-                    for ub in lp.updates:
-                        (kw, mrows, rstart, src_start, head_start,
-                         *_, tgt_cpos) = ub.to(dev)
-                        blocks.apply_updates_sym_t(
-                            L, kw, mrows, rstart, src_start, head_start,
-                            int(ub.slab_lo[0]), ub.rows_to(dev), tgt_cpos,
-                            mp=ub.mp, kp=ub.kp, csp=ub.csp,
-                            srows=ub.slab_rows)
-                for pb in lp.panels:
-                    widths, nbelow, _ = pb.to_u(dev)
-                    blocks.factor_panels_chol_u(
-                        L, widths, nbelow, int(pb.slab_lo[0]),
-                        cp=pb.cp, rbp=pb.rbp, mode=mode)
-        f = CholeskyFactor(A, self.sym, self.plan, L, cfg)
+        if self._runner is None:
+            self._runner = MegaRunner(self.plan, lu=False, config=self.config,
+                                      device=self.device)
+            self._solver = MegaSolver(self.plan, lu=False, config=self.config,
+                                      device=self.device)
+        with profile_scope(self.config, "factorize"):
+            if self.config.engine == "mega":
+                L = self._runner.run(vals)      # one graph replay on the card
+            else:
+                L = self._runner.trace_fn()(vals)
+        f = CholeskyFactor(A, self.sym, self.plan, L, self.config,
+                           solver=self._solver)
         return finish_factorize(self, f, t0)
 
 

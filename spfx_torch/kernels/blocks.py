@@ -24,6 +24,14 @@ diagonal on its diagonal) in ``Ux``, slot for slot in the same panel
 layout; an LU step runs the Cholesky step's gathers once per array, with
 crossed products (C_L = G_L H_U^T, C_U = G_U H_L^T), and one twin
 extend-add (``extend_add.extend_add_rows2``) into both arrays.
+
+- level solves (the device solve): ``solve_fwd_level_c`` and
+  ``solve_bwd_level_c`` solve one PC bucket's diagonal blocks against the
+  right-hand sides and carry the below blocks' products to the rows
+  below, in place on x (n + 1, nrhs). No Pallas kernel computes them in
+  the JAX package (off the TPU its triangular solves are
+  ``lax.linalg.triangular_solve``), so they are library calls here:
+  ``torch.linalg.solve_triangular`` and ``torch.bmm``.
 """
 
 from __future__ import annotations
@@ -346,3 +354,75 @@ def factor_panels_lu_u(Lx, Ux, widths, nbelow, slab_lo: int, cp: int,
         bl[:, cp:, :] += dBL
         bu[:, cp:, :] += dBU
     return Lx, Ux
+
+
+# --------------------------------------------------------------------------
+# Supernodal triangular solves, batched per level (contig layout)
+# --------------------------------------------------------------------------
+
+def _x_idx(x, g):
+    """Rows of x for the global indices ``g``; -1 reads and writes the
+    sentinel row n of x (n + 1, nrhs)."""
+    return torch.where(g >= 0, g, x.shape[0] - 1).long()
+
+
+def _task_gather(L, starts, rows: int, win: int):
+    """(B,) task starts -> (B, rows, win) contiguous blocks of L; start < 0
+    gives zeros."""
+    live = starts >= 0
+    idx = (torch.where(live, starts, 0).long()[:, None]
+           + torch.arange(rows * win, device=L.device)[None, :])
+    out = torch.where(live[:, None], L[idx], 0)
+    return out.view(starts.shape[0], rows, win)
+
+
+def _panel_parts_c(L, widths, nbelow, diag_start, below_start, cp: int,
+                   rbp: int):
+    """(L11 (B, cp, cp), L21 (B, rbp, cp)) of one uniform panel bucket,
+    masked to the live widths and rows; the dead columns of L11 carry a
+    unit diagonal, so the solves leave their rows of x alone."""
+    cm = _col_mask(widths, cp, L.dtype)
+    L11 = _task_gather(L, diag_start, cp, cp) * cm[:, None, :] \
+        * _row_mask(widths, cp, L.dtype)[:, :, None] \
+        + torch.diag_embed(1.0 - cm)
+    if rbp:
+        L21 = _task_gather(L, below_start, rbp, cp) * cm[:, None, :] \
+            * _row_mask(nbelow, rbp, L.dtype)[:, :, None]
+    else:
+        L21 = L.new_zeros((widths.shape[0], 0, cp))
+    return L11, L21
+
+
+def solve_fwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
+                      xrows, cp: int, rbp: int, lu: bool = False):
+    """x[cols] = L11^{-1} x[cols]; x[below] -= L21 x[cols], for every task
+    of one PC bucket, in place on x (n + 1, nrhs); returns x. L11 is unit
+    for LU (``lu``). Several tasks may carry into one row below, so the
+    subtraction is an ``index_add_``."""
+    L11, L21 = _panel_parts_c(F, widths, nbelow, diag_start, below_start,
+                              cp, rbp)
+    ic = _x_idx(x, xcols)
+    y = torch.linalg.solve_triangular(L11, x[ic], upper=False,
+                                      unitriangular=lu)
+    x[ic] = y
+    if rbp:
+        upd = torch.bmm(L21, y)
+        x.index_add_(0, _x_idx(x, xrows).reshape(-1),
+                     upd.reshape(-1, x.shape[1]), alpha=-1)
+    return x
+
+
+def solve_bwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
+                      xrows, cp: int, rbp: int, lu: bool = False):
+    """x[cols] = L11^{-T} (x[cols] - L21^T x[below]) for every task of one
+    PC bucket, in place on x; returns x. For LU, F is U^T, so L11^T is U's
+    diagonal block (not unit)."""
+    L11, L21 = _panel_parts_c(F, widths, nbelow, diag_start, below_start,
+                              cp, rbp)
+    ic = _x_idx(x, xcols)
+    t = x[ic]
+    if rbp:
+        t = t - torch.bmm(L21.transpose(1, 2), x[_x_idx(x, xrows)])
+    x[ic] = torch.linalg.solve_triangular(L11.transpose(1, 2), t,
+                                          upper=True)
+    return x

@@ -1,0 +1,281 @@
+"""One-launch factorization and device solve: ``MegaRunner`` and
+``MegaSolver``.
+
+Port of spfx/kernels/mega.py. The JAX runner compiles the whole step list
+into one ``lax.scan`` with a ``lax.switch`` over shape classes, so one
+factorization is one dispatch. Here the walk stays the plain Python loop
+over the plan's levels (``MegaRunner._once``): the assembly, then per level
+its UT update buckets and its PC panel buckets. On a CUDA device the runner
+captures that walk once per panel mode into a CUDA graph, and every later
+factorization is one replay of it. The ``lax.switch`` machinery (packed
+class tables, region-return branches) is not ported: a graph replays
+launches whose shapes were fixed at capture.
+
+Capture. The first ``run`` of a mode walks the plan once eagerly on a side
+stream, which builds and loads every kernel library, uploads every bucket
+table and creates the cuBLAS workspace, then captures the walk over static
+entry-value buffers. The kernel wrappers count their launches on the host,
+so the warm-up and the capture count and a replay does not: the capture's
+counts are kept in ``captures[mode]["launches"]``, the replays in
+``replays``. Precision is baked into the captured products; the config
+fixes it per context. A failed build, capture or replay raises: nothing
+falls back to the eager walk, which is ``engine="calls"``.
+
+Each ``run`` copies the new entry values in, replays the graph and returns
+a clone of the factor: the graph's output lives in its private memory pool
+and the next replay overwrites it.
+
+``MegaSolver`` runs the contig level solves (``blocks.solve_fwd_level_c``,
+``blocks.solve_bwd_level_c``) over the levels' PC buckets, forward in
+order and backward in reverse; on a CUDA device one graph per factor and
+right-hand-side count, cached by the factor, holds both sweeps.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import time
+
+import numpy as np
+import torch
+
+from spfx_torch.kernels import _cuda, blocks, route
+from spfx_torch.utils.config import Config, DEFAULT
+
+# JAX matmul precision -> torch float32 matmul precision. "default" and
+# "bfloat16" (one bf16 pass on the TPU) become TF32, which is finer. JAX's
+# "high" is bf16x3 (~1e-6 relative); torch has no such mode, and TF32 (a
+# 10-bit mantissa) would be coarser, so check_config refuses it.
+_PRECISION = {"highest": "highest", "float32": "highest",
+              "default": "medium", "bfloat16": "medium"}
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str):
+    """float32 matrix products at the JAX precision ``name`` ("highest":
+    full float32, no TF32), restored afterwards."""
+    old = torch.get_float32_matmul_precision()
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision(_PRECISION[name])
+    torch.backends.cuda.matmul.allow_tf32 = _PRECISION[name] != "highest"
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+
+
+def update_precision(config: Config):
+    """The context for the UT update steps inside the walk's
+    ``matmul_precision(config.matmul_precision)``: a no-op unless
+    ``config.update_precision`` names another torch mode."""
+    upd = config.update_precision or config.matmul_precision
+    if _PRECISION[upd] == _PRECISION[config.matmul_precision]:
+        return contextlib.nullcontext
+    return functools.partial(matmul_precision, upd)
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A captured walk: the graph, its static inputs and its outputs."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple
+    outputs: tuple
+
+
+def _capture(device, fn, inputs) -> tuple:
+    """Warm ``fn(*inputs)`` up once eagerly on a side stream, then capture
+    it into a CUDA graph. Returns (graph, outputs, warm-up s, capture s,
+    launch counts of the capture)."""
+    with torch.cuda.device(device):
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        before = _cuda.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a host thread that plans the next matrix (the CLI's
+        # prefetch) may call the CUDA runtime meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn(*inputs)
+        after = _cuda.launch_counts()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (graph, out, t1 - t0, t2 - t1,
+            {k: after[k] - before[k] for k in after})
+
+
+def _device(device) -> torch.device:
+    """``device``, else the CUDA device (raises without one)."""
+    from spfx_torch.chol.factorize import resolve_device
+    return resolve_device(device)
+
+
+class MegaRunner:
+    """One factorization per launch for a FactorPlan (Cholesky or LU) on
+    ``device`` (the CUDA device unless given): a CUDA-graph replay on the
+    card, the eager walk on the CPU."""
+
+    def __init__(self, plan, lu: bool = False, config: Config = DEFAULT,
+                 device=None):
+        self.plan = plan
+        self.lu = lu
+        self.config = config
+        self.device = _device(device)
+        idx = (plan.assembly_idx, plan.assembly_idx_u) if lu \
+            else (plan.assembly_idx,)
+        self._asm = tuple(torch.as_tensor(i.astype(np.int64),
+                                          device=self.device) for i in idx)
+        self._graphs: dict = {}     # panel mode -> _Graph
+        # panel mode -> {"warmup_s", "capture_s", "first_replay_s",
+        # "launches"}: the first run of each mode
+        self.captures: dict = {}
+        self.replays = 0
+
+    def _once(self, vals, vals_u=None, mode: str | None = None):
+        """One eager factorization from permuted lower(-and-upper^T) entry
+        values: the assembly into fresh storage, then per level its UT
+        update buckets and its PC panel buckets, in place. ``mode`` is the
+        panel-kernel mode (``route.panel_mode()`` when None)."""
+        mode = route.panel_mode() if mode is None else mode
+        plan, dev, lu = self.plan, self.device, self.lu
+        arrays = [blocks.assemble(a, v, plan.storage)
+                  for a, v in zip(self._asm, (vals, vals_u))]
+        update = blocks.apply_updates_lu_t if lu \
+            else blocks.apply_updates_sym_t
+        panel = blocks.factor_panels_lu_u if lu \
+            else blocks.factor_panels_chol_u
+        upd_ctx = update_precision(self.config)
+        with matmul_precision(self.config.matmul_precision):
+            for lp in plan.levels:
+                # left-looking: drain this level's pending updates, then
+                # factor its panels
+                with upd_ctx():
+                    for ub in lp.updates:
+                        (kw, mrows, rstart, src_start, head_start, _, rows,
+                         tgt_cpos) = ub.to(dev)
+                        update(*arrays, kw, mrows, rstart, src_start,
+                               head_start, int(ub.slab_lo[0]), rows,
+                               tgt_cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
+                               srows=ub.slab_rows)
+                for pb in lp.panels:
+                    widths, nbelow, _ = pb.to_u(dev)
+                    panel(*arrays, widths, nbelow, int(pb.slab_lo[0]),
+                          cp=pb.cp, rbp=pb.rbp, mode=mode)
+        return tuple(arrays) if lu else arrays[0]
+
+    def trace_fn(self):
+        """The eager whole-factorization callable (vals[, vals_u]) ->
+        factor, under the panel mode set when it is called: what
+        ``engine="calls"`` runs."""
+        if not self.lu:
+            return lambda vals: self._once(vals)
+        return lambda vl, vu: self._once(vl, vu)
+
+    def run(self, vals, vals_u=None):
+        """Factorize from permuted lower(-and-upper^T) entry values: one
+        graph replay on the card, the eager walk on the CPU."""
+        return self.run_repeat(1, vals, vals_u)
+
+    def run_repeat(self, reps: int, vals, vals_u=None):
+        """``reps`` back-to-back factorizations, the last one's factor
+        returned: on the card ``reps`` replays on one stream, which are
+        ordered without a data dependence (the bench's slope path)."""
+        if reps < 1:
+            raise ValueError(f"run_repeat: reps must be >= 1, got {reps}")
+        mode = route.panel_mode()      # SPFX_PANEL_KERNEL, once a call
+        if self.device.type != "cuda":
+            for _ in range(reps):
+                out = self._once(vals, vals_u, mode)
+            return out
+        inputs = (vals, vals_u) if self.lu else (vals,)
+        g = self._graphs.get(mode)
+        fresh = g is None
+        if fresh:
+            g = self._graphs[mode] = self._capture(mode, inputs)
+        t0 = time.perf_counter()
+        for dst, src in zip(g.inputs, inputs):
+            if src.shape != dst.shape or src.dtype != dst.dtype \
+                    or src.device != dst.device:
+                raise ValueError(
+                    f"MegaRunner: entry values {tuple(src.shape)} "
+                    f"{src.dtype} on {src.device}, the graph takes "
+                    f"{tuple(dst.shape)} {dst.dtype} on {dst.device}")
+            dst.copy_(src)
+        for _ in range(reps):
+            g.graph.replay()
+            self.replays += 1
+        out = tuple(t.clone() for t in g.outputs)
+        if fresh:
+            torch.cuda.synchronize(self.device)
+            self.captures[mode]["first_replay_s"] = time.perf_counter() - t0
+        return out if self.lu else out[0]
+
+    def _capture(self, mode: str, inputs) -> _Graph:
+        static = tuple(v.clone() for v in inputs)
+        graph, out, warm, cap, launches = _capture(
+            self.device, functools.partial(self._once, mode=mode), static)
+        self.captures[mode] = dict(warmup_s=warm, capture_s=cap,
+                                   launches=launches)
+        return _Graph(graph, static, out if self.lu else (out,))
+
+
+class MegaSolver:
+    """Forward and backward level-batched triangular solves over the PC
+    buckets of a contig plan, on ``device`` (the CUDA device unless
+    given). The bucket tables are uploaded at the first solve."""
+
+    def __init__(self, plan, lu: bool = False, config: Config = DEFAULT,
+                 device=None):
+        self.plan = plan
+        self.lu = lu
+        self.config = config
+        self.device = _device(device)
+
+    def _steps(self):
+        return [(pb.to(self.device), pb.cp, pb.rbp)
+                for lp in self.plan.levels for pb in lp.panels]
+
+    def forward(self, F, x):
+        """x <- L^{-1} x over the levels in order, in place (L unit for
+        LU)."""
+        for tabs, cp, rbp in self._steps():
+            blocks.solve_fwd_level_c(F, x, *tabs, cp=cp, rbp=rbp,
+                                     lu=self.lu)
+        return x
+
+    def backward(self, F, x):
+        """x <- L^{-T} x (LU: U^{-1} x, with F = U^T) over the levels in
+        reverse, in place."""
+        for tabs, cp, rbp in reversed(self._steps()):
+            blocks.solve_bwd_level_c(F, x, *tabs, cp=cp, rbp=rbp,
+                                     lu=self.lu)
+        return x
+
+    def _eager(self, F, G, x):
+        with matmul_precision(self.config.matmul_precision):
+            return self.backward(G, self.forward(F, x))
+
+    def solve(self, F, G, x, graphs: dict):
+        """Forward over F, then backward over G, of x (n + 1, nrhs) (row n
+        the sentinel), in place on the CPU. On the card the two sweeps are
+        one replay of a graph that ``graphs`` (a dict the factor owns)
+        keeps by nrhs; the solution is returned as a new tensor."""
+        if self.device.type != "cuda":
+            return self._eager(F, G, x)
+        nrhs = x.shape[1]
+        g = graphs.get(nrhs)
+        if g is None:
+            static = torch.zeros_like(x)
+            graph, out, *_ = _capture(
+                self.device, functools.partial(self._eager, F, G), (static,))
+            g = graphs[nrhs] = _Graph(graph, (static,), (out,))
+        g.inputs[0].copy_(x)
+        g.graph.replay()
+        return g.outputs[0].clone()

@@ -8,9 +8,12 @@ L-lower and U^T strict-lower values into the two tensors and walks the
 plan's levels in place, as the Cholesky executor does: each level's UT
 update buckets (``blocks.apply_updates_lu_t``), then its PC panel buckets
 (``blocks.factor_panels_lu_u``, routed by ``SPFX_PANEL_KERNEL`` as for
-Cholesky). The solve copies both factors back and
-runs the native f64 supernodal solve with iterative refinement against the
-user's matrix on the host.
+Cholesky), through ``kernels.mega.MegaRunner`` (one CUDA-graph replay per
+factorization on the card with ``engine="mega"``, the eager walk with
+``"calls"``). The solve runs the native f64 supernodal solve on the
+copied-back factors or the device's level solves (``solve_backend``, as
+for Cholesky), with f64 iterative refinement against the user's matrix on
+the host.
 
 Like the reference, the factorization does not pivot: it needs a matrix
 that factors without pivoting (diagonally dominant, or made so by the
@@ -29,9 +32,9 @@ import scipy.sparse as sp
 import torch
 
 from spfx_torch.chol.factorize import (
-    _DTYPES, check_config, check_windows, finish_factorize, matmul_precision,
-    refined_solve, resolve_device, update_precision)
-from spfx_torch.kernels import blocks, route
+    _DTYPES, check_config, check_windows, device_solve, refined_solve,
+    resolve_device, use_host_solve)
+from spfx_torch.kernels.mega import MegaRunner, MegaSolver
 from spfx_torch.plan.schedule import FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
@@ -40,17 +43,19 @@ from spfx_torch.utils.config import Config, DEFAULT
 class LUFactor:
     """Factorized P A P^T = L U (unit-diagonal L, no pivoting): the flat
     tensors ``Lx`` (L) and ``Ux`` (U^T) on the context's device, with the
-    host f64 solve."""
+    host or the device solve."""
 
     def __init__(self, A: sp.spmatrix, sym: Symbolic, plan: FactorPlan,
                  Lx: torch.Tensor, Ux: torch.Tensor, config: Config,
-                 row_perm: np.ndarray | None = None):
+                 solver=None, row_perm: np.ndarray | None = None):
         self.A = sp.csc_matrix(A)
         self.sym = sym
         self.plan = plan
         self.Lx = Lx
         self.Ux = Ux
         self.config = config
+        self._solver = solver      # the context's MegaSolver, if given
+        self._solve_graphs = {}    # nrhs -> the device solve's graph
         # static pivot row permutation (Config.static_pivot): the factor is
         # of A[row_perm], so solves permute b on the way in; A is kept
         # unpermuted so refinement runs against the user's matrix
@@ -65,12 +70,12 @@ class LUFactor:
                                for t in (self.Lx, self.Ux))
         return self._host
 
+    def _use_host_solve(self) -> bool:
+        return use_host_solve(self.config)
+
     def _solve_host(self, b: np.ndarray) -> np.ndarray:
         """Native C++ supernodal solve on the copied-back factors (f64)."""
         from spfx_torch.symbolic import _native
-        if not _native.available():
-            raise RuntimeError("spfx_torch solve needs the native planner "
-                               "library (no device solve yet)")
         Lh, Uh = self.host_factors()
         n = self.sym.n
         squeeze = b.ndim == 1
@@ -82,9 +87,17 @@ class LUFactor:
             out[self.sym.perm, j] = x
         return out[:, 0] if squeeze else out
 
+    def _solve_device(self, b: np.ndarray) -> np.ndarray:
+        """One forward (unit L) + backward (U, from U^T) supernodal solve
+        pass on the device; the static pivot's rows permuted on the way
+        in."""
+        return device_solve(self, self.Lx, self.Ux, b)
+
     def solve(self, b: np.ndarray, refine: int | None = None) -> np.ndarray:
         """Solve A x = b with f64 iterative refinement (mixed precision)."""
-        return refined_solve(self._solve_host, self.A, self.config, b, refine)
+        solve1 = self._solve_host if self._use_host_solve() \
+            else self._solve_device
+        return refined_solve(solve1, self.A, self.config, b, refine)
 
     def LU_sparse(self) -> tuple[sp.csc_matrix, sp.csc_matrix]:
         """Reconstruct (L, U) of P A P^T as scipy matrices — test path."""
@@ -148,7 +161,8 @@ class LU:
         self.plan = build_plan(self.sym, A, config, lu=True)
         self.plan_time = time.perf_counter() - t0
         check_windows(self.plan)
-        self._asm_idx = None
+        self._runner = None
+        self._solver = None
 
     def entry_values(self, A: sp.spmatrix, permute_rows: bool = True):
         """Permuted L-lower and U^T strict-lower entry values — the only
@@ -164,39 +178,23 @@ class LU:
                      for m in (low, upt))
 
     def factorize(self, A: sp.spmatrix) -> LUFactor:
+        from spfx_torch.utils.instrument import finish_factorize, profile_scope
         A = sp.csc_matrix(A)
-        cfg = self.config
-        dev = self.device
-        mode = route.panel_mode()      # SPFX_PANEL_KERNEL, once a call
         t0 = time.perf_counter()
         vals_l, vals_u = self.entry_values(A)
-        if self._asm_idx is None:
-            self._asm_idx = tuple(
-                torch.as_tensor(i.astype(np.int64), device=dev)
-                for i in (self.plan.assembly_idx, self.plan.assembly_idx_u))
-        Lx = blocks.assemble(self._asm_idx[0], vals_l, self.plan.storage)
-        Ux = blocks.assemble(self._asm_idx[1], vals_u, self.plan.storage)
-        upd_ctx = update_precision(cfg)
-        with matmul_precision(cfg.matmul_precision):
-            for lp in self.plan.levels:
-                # left-looking: drain this level's pending updates, then
-                # factor its panels
-                with upd_ctx():
-                    for ub in lp.updates:
-                        (kw, mrows, rstart, src_start, head_start,
-                         *_, tgt_cpos) = ub.to(dev)
-                        blocks.apply_updates_lu_t(
-                            Lx, Ux, kw, mrows, rstart, src_start,
-                            head_start, int(ub.slab_lo[0]), ub.rows_to(dev),
-                            tgt_cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
-                            srows=ub.slab_rows)
-                for pb in lp.panels:
-                    widths, nbelow, _ = pb.to_u(dev)
-                    blocks.factor_panels_lu_u(
-                        Lx, Ux, widths, nbelow, int(pb.slab_lo[0]),
-                        cp=pb.cp, rbp=pb.rbp, mode=mode)
-        f = LUFactor(A, self.sym, self.plan, Lx, Ux, cfg,
-                     row_perm=self.row_perm)
+        if self._runner is None:
+            self._runner = MegaRunner(self.plan, lu=True, config=self.config,
+                                      device=self.device)
+            self._solver = MegaSolver(self.plan, lu=True, config=self.config,
+                                      device=self.device)
+        with profile_scope(self.config, "factorize"):
+            if self.config.engine == "mega":
+                # one graph replay on the card
+                Lx, Ux = self._runner.run(vals_l, vals_u)
+            else:
+                Lx, Ux = self._runner.trace_fn()(vals_l, vals_u)
+        f = LUFactor(A, self.sym, self.plan, Lx, Ux, self.config,
+                     solver=self._solver, row_perm=self.row_perm)
         return finish_factorize(self, f, t0)
 
 

@@ -220,22 +220,21 @@ class UpdateBucketC:
     #                             gather DMA aligns starts down; see
     #                             _make_update_bucket_t)
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
-    _dev_rows: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def to(self, device):
-        arrs = (self.kw, self.mrows, self.src_start, self.slab_lo,
-                self.ea_idx, self.ea_rbase, self.ea_rel, self.tgt_cpos)
+        """The step's tables on ``device``: (kw, mrows, [rstart, src_start,
+        head_start | src_start], slab_lo, rows, tgt_cpos), where ``rows`` is
+        tgt_lrow flattened to (B * rows,) int32: the slab row of every row
+        of the step's E, -1 where the row is dropped (the extend-add
+        kernel's row table). The ea_* group tables stay on the host."""
+        rows = np.ascontiguousarray(self.tgt_lrow.reshape(-1),
+                                    dtype=np.int32)
+        arrs = (self.kw, self.mrows, self.src_start, self.slab_lo, rows,
+                self.tgt_cpos)
         if self.head_start is not None:
             arrs = arrs[:2] + (self.rstart, self.src_start,
                                self.head_start) + arrs[3:]
         return _to_device(self._dev, device, arrs)
-
-    def rows_to(self, device):
-        """tgt_lrow flattened to (B * rows,) int32 on ``device``: the slab
-        row of every row of the step's E, -1 where the row is dropped (the
-        extend-add kernel's row table)."""
-        return _to_device(self._dev_rows, device, (np.ascontiguousarray(
-            self.tgt_lrow.reshape(-1), dtype=np.int32),))[0]
 
     @property
     def tgt_row_start(self) -> np.ndarray:

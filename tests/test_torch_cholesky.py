@@ -127,7 +127,7 @@ def test_no_cuda_raises(monkeypatch):
     (dict(layout="rowwin"), "item 6"),
     (dict(update_tile=0), "item 6"),
     (dict(dtype="complex128"), "item 6"),
-    (dict(solve_backend="device"), "item 4"),
+    (dict(dtype="complex64"), "item 6"),
     (dict(engine="fused"), "item 6"),
     (dict(matmul_precision="high"), "item 6"),
     (dict(update_precision="high"), "item 6"),
@@ -160,7 +160,9 @@ def test_import_leaves_no_jax():
             "spfx_torch.kernels.route, spfx_torch.kernels.panel_lanes, "
             "spfx_torch.kernels.panel_wide, spfx_torch.kernels.extend_add, "
             "spfx_torch.kernels.syrk_gemm, spfx_torch.kernels.chol_small, "
-            "spfx_torch.bench.panels\n"
+            "spfx_torch.bench.panels, spfx_torch.kernels.mega, "
+            "spfx_torch.checkpoint, spfx_torch.__main__, "
+            "spfx_torch.utils.instrument\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spfx')]\n"
             "print(','.join(bad))\n")
@@ -185,7 +187,9 @@ def test_port_sources_import_no_jax():
     for f in ("lu/factorize.py", "lu/pivot.py", "kernels/route.py",
               "kernels/panel_lanes.py", "kernels/panel_wide.py",
               "kernels/extend_add.py", "kernels/syrk_gemm.py",
-              "kernels/chol_small.py", "bench/panels.py"):
+              "kernels/chol_small.py", "bench/panels.py",
+              "kernels/mega.py", "checkpoint.py", "__main__.py",
+              "utils/instrument.py"):
         assert os.path.join(ROOT, "spfx_torch", f) in srcs
     for path in srcs:
         tree = ast.parse(open(path).read(), path)

@@ -221,7 +221,7 @@ def test_row_table_pairs_are_the_group_pairs(chol_plan):
     of the ea_idx / ea_rbase / ea_rel groups, each E row once."""
     plan = chol_plan
     for ub in _ubs(plan):
-        rows = ub.rows_to("cpu").numpy()
+        rows = ub.to("cpu")[6].numpy()
         assert rows.shape == (len(ub.kw) * (ub.mp + ALIGN // ub.kp),)
         live = np.flatnonzero(rows >= 0)
         pairs = sorted(zip(live.tolist(), rows[live].tolist()))
@@ -232,7 +232,7 @@ def test_row_table_pairs_are_the_group_pairs(chol_plan):
                             (ub.ea_rbase[g] + rel)[keep].tolist()))
         assert pairs == gpairs
         assert len(set(ub.ea_idx[keep].tolist())) == len(gpairs)
-        assert ub.rows_to("cpu") is ub.rows_to(torch.device("cpu"))
+        assert ub.to("cpu")[6] is ub.to(torch.device("cpu"))[6]
 
 
 # --------------------------------------------------------------------------

@@ -361,7 +361,7 @@ def test_ut_step_matches_jax(real_plan, dtype, steps):
         before = Lt.clone()
         out = blocks.apply_updates_sym_t(
             Lt, kw, mrows, rstart, src, head, int(ub.slab_lo[0]),
-            tub.rows_to("cpu"), cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
+            tub.to("cpu")[6], cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
             srows=ub.slab_rows)
         assert out is Lt                             # in place
         lo = int(ub.slab_lo[0])

@@ -221,7 +221,7 @@ def test_lu_ut_step_matches_jax(lu_plan, dtype, steps):
         before = Lt.clone(), Ut.clone()
         out = blocks.apply_updates_lu_t(
             Lt, Ut, kw, mrows, rstart, src, head, int(ub.slab_lo[0]),
-            tub.rows_to("cpu"), cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
+            tub.to("cpu")[6], cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
             srows=ub.slab_rows)
         assert out[0] is Lt and out[1] is Ut             # in place
         lo = int(ub.slab_lo[0])
@@ -404,7 +404,7 @@ def test_lu_no_cuda_raises(monkeypatch):
     (dict(layout="rowwin"), "item 6"),
     (dict(update_tile=0), "item 6"),
     (dict(dtype="complex128"), "item 6"),
-    (dict(solve_backend="device"), "item 4"),
+    (dict(dtype="complex64"), "item 6"),
     (dict(engine="fused"), "item 6"),
     (dict(matmul_precision="high"), "item 6"),
     (dict(update_precision="high"), "item 6"),

@@ -92,6 +92,8 @@ def test_bucket_tables_to_device(plans):
     t = ub.to("cpu")
     assert t is ub.to(torch.device("cpu"))
     np.testing.assert_array_equal(t[2].numpy(), ub.rstart)
+    np.testing.assert_array_equal(t[6].numpy(), ub.tgt_lrow.reshape(-1))
+    assert t[6].dtype == torch.int32 and len(t) == 8
     np.testing.assert_array_equal(t[-1].numpy(), ub.tgt_cpos)
     pb = next(pb for lp in plan.levels for pb in lp.panels)
     w, nb, lo = pb.to_u("cpu")
