@@ -71,6 +71,16 @@ non-zero):
    a graph per mode, the capture's launches against the route-aware
    prediction (every PC step one launch of the route's kernel), the graph
    against the eager walk;
+4d. the non-default bucket kinds and engines, Cholesky and LU at 48^3 f32
+   on the 48^3 analysis: Config(update_tile=0) (UC buckets) and
+   Config(layout="rowwin") with the mega engine, and
+   Config(layout="rowwin", engine="fused") (one graph per chunk of
+   levels): the same checks as phase 4 (the capture's launches against
+   the plan's prediction by bucket kind: one extend_add_rows per UC step,
+   no window_gather2; the graph factor against the eager walk; the
+   refined residual), one replay between CUDA events, for the mega
+   engine the graph report, and for rowwin with the mega engine the
+   device solve report;
 5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12,
    with the device solve report;
 5b. f64 LU at 32^3 with unsymmetric values (every entry above the diagonal
@@ -81,6 +91,7 @@ non-zero):
 6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
 6b. the same for LU, on the unsymmetric 12^3 matrix, both flat factors;
 6c. the same for both kinds under SPFX_PANEL_KERNEL=lanes, wide and mixed;
+6f. the same for both kinds under the three configs of phase 4d;
 6e. the surfaces at 12^3: the CLI (both kinds, factors saved), the saved
    factors loaded onto the card and solved (host and device solve), and
    the profile scope's trace;
@@ -125,6 +136,11 @@ GRID = 48                          # the headline matrix, laplacian_3d(48)
 GRID_F64 = 32                      # the double-precision cases
 GRID_CPU = 12                      # card against CPU
 SMALL_BATCH = 65536                # cholesky_small_batched's (batch, 32)
+# phase 4d's and 6f's configs: UC buckets, the rowwin layout (mega engine),
+# the rowwin layout under the fused engine
+LAYOUT_CONFIGS = (("uc", dict(update_tile=0)),
+                  ("rowwin", dict(layout="rowwin")),
+                  ("rowwin_fused", dict(layout="rowwin", engine="fused")))
 
 
 _LOG = []           # the open log file, once main() has started
@@ -1332,28 +1348,40 @@ def is_lu(ctx) -> bool:
     return isinstance(ctx, spfx_torch.LU)
 
 
+def panel_shape(pb) -> tuple:
+    """(cp, rbp) of a PC or rowwin P bucket."""
+    if hasattr(pb, "cp"):
+        return pb.cp, pb.rbp
+    return pb.diag_row_start.shape[1], pb.below_row_start.shape[1]
+
+
 def predicted_launches(ctx) -> dict:
     """Launches of one factorization under the SPFX_PANEL_KERNEL mode set
-    now: one window_gather2 per UT step and factor array, one
-    extend_add_rows per UT step (LU's twin takes both arrays); per PC
-    step either one launch of its route's whole-panel kernel or, on the
-    blocked route, one diagonal-block kernel per 32 columns (getrf_inv for
-    LU, potrf_inv for Cholesky)."""
+    now, by bucket kind: a UT step one window_gather2 per factor array and
+    one extend_add_rows (LU's twin takes both arrays); a UC step one
+    extend_add_rows; a rowwin U step none; a PC or rowwin P step either one
+    launch of its route's whole-panel kernel or, on the blocked route, one
+    diagonal-block kernel per 32 columns (getrf_inv for LU, potrf_inv for
+    Cholesky)."""
     from spfx_torch.kernels import _cuda, route
+    from spfx_torch.plan.schedule import UpdateBucketC
     plan = ctx.plan
     lu = is_lu(ctx)
     mode = route.panel_mode()
     item = 4 if ctx.config.dtype == "float32" else 8
     want = dict.fromkeys(_cuda.launch_counts(), 0)
-    steps = sum(len(lp.updates) for lp in plan.levels)
-    want["window_gather2"] = steps * (2 if lu else 1)
-    want["extend_add_rows"] = steps
     for lp in plan.levels:
+        for ub in lp.updates:
+            if isinstance(ub, UpdateBucketC):
+                want["extend_add_rows"] += 1
+                if ub.head_start is not None:
+                    want["window_gather2"] += 2 if lu else 1
         for pb in lp.panels:
-            r = route.route_panel(pb.cp, pb.rbp, len(pb.widths), item, lu,
+            cp, rbp = panel_shape(pb)
+            r = route.route_panel(cp, rbp, len(pb.widths), item, lu,
                                   mode=mode)
             if r == "blocked":
-                want["getrf_inv" if lu else "potrf_inv"] += -(-pb.cp // 32)
+                want["getrf_inv" if lu else "potrf_inv"] += -(-cp // 32)
             else:
                 want[f"{'lu' if lu else 'chol'}_panel_{r}"] += 1
     return want
@@ -1376,16 +1404,21 @@ def panel_env(mode):
 
 def plan_summary(ctx) -> dict:
     """The plan's sizes: what one factorization launches and moves."""
+    from spfx_torch.plan.schedule import UpdateBucketC
     plan = ctx.plan
-    ut = [ub for lp in plan.levels for ub in lp.updates]
+    ups = [ub for lp in plan.levels for ub in lp.updates]
+    ut = [ub for ub in ups if isinstance(ub, UpdateBucketC)
+          and ub.head_start is not None]
     pc = [pb for lp in plan.levels for pb in lp.panels]
     arrays = 2 if is_lu(ctx) else 1
     return dict(n=plan.n, nnzL=int(ctx.sym.nnzL), flops=plan.flops,
                 levels=len(plan.levels), ut_steps=len(ut),
-                pc_steps=len(pc), factor_arrays=arrays,
+                update_steps=len(ups), pc_steps=len(pc),
+                factor_arrays=arrays,
                 gather_windows=2 * arrays * sum(len(ub.kw) for ub in ut),
-                diag_block_calls=sum(-(-pb.cp // 32) for pb in pc),
-                diag_blocks=sum(len(pb.widths) * -(-pb.cp // 32)
+                diag_block_calls=sum(-(-panel_shape(pb)[0] // 32)
+                                     for pb in pc),
+                diag_blocks=sum(len(pb.widths) * -(-panel_shape(pb)[0] // 32)
                                 for pb in pc),
                 storage=plan.storage)
 
@@ -1408,8 +1441,9 @@ def main_path(ctx, A, label: str, repeats: int = 5,
     values, within 1e-5 (f32) or 1e-12 (f64) of each array's largest
     entry; the refined solve (and, given ``unrefined_limit``, the residual
     without refinement against it). ``extras``: "graph" adds
-    ``graph_report``, "solve" ``device_solve_report``. Returns (factor,
-    launches, the capture's launches, report)."""
+    ``graph_report``, "solve" ``device_solve_report``, "replay"
+    ``replay_event_ms``. Returns (factor, launches, the capture's
+    launches, report)."""
     import torch
     from spfx_torch import scaled_residual, synth_rhs
     from spfx_torch.kernels import _cuda, route
@@ -1491,6 +1525,8 @@ def main_path(ctx, A, label: str, repeats: int = 5,
                reserved_mem_gb=torch.cuda.memory_reserved() / 1e9,
                solve_s=solve_s, residual_norefine=r0, residual=res,
                launches=launches, graph_launches=cap["launches"])
+    if "replay" in extras:
+        rep["replay_event_ms"] = replay_event_ms(runner, mode)
     if "graph" in extras:
         rep.update(graph_report(ctx, A, f, med, mode, label))
     if "solve" in extras:
@@ -1502,6 +1538,24 @@ def main_path(ctx, A, label: str, repeats: int = 5,
         fail(f"{label}: scaled residual without refinement {r0:.3e} > "
              f"{unrefined_limit:g}")
     return f, launches, cap["launches"], rep
+
+
+def replay_event_ms(runner, mode: str) -> float:
+    """One replay of the runner's graph for ``mode`` (the fused engine: its
+    chunks' graphs in order) between CUDA events, median of 5."""
+    import torch
+    g = runner._graphs[mode]
+    replay = g.graph.replay if hasattr(g, "graph") else g.replay
+    ev = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay()
+        b.record()
+        b.synchronize()
+        ev.append(a.elapsed_time(b))
+    return statistics.median(ev)
 
 
 def profiled_ms(fn):
@@ -1523,8 +1577,8 @@ def profiled_ms(fn):
 def graph_report(ctx, A, f, steady_s: float, mode: str, label: str) -> dict:
     """One replay's profiled device time against one eager walk's on the
     same entry values (the profiler must attribute the graph's kernels:
-    the window gathers are in every path, and the two device times agree
-    within 10%), the device-busy share of a
+    the window gathers of a UT plan, else the diagonal-block kernel, and
+    the two device times agree within 10%), the device-busy share of a
     steady factorization (replay device time over its median wall), the
     replay alone between CUDA events, the first factor bit for bit
     unchanged by a factorization of 2A on the same context, and
@@ -1534,9 +1588,13 @@ def graph_report(ctx, A, f, steady_s: float, mode: str, label: str) -> dict:
     g = runner._graphs[mode]
     replay_ms, names = profiled_ms(g.graph.replay)
     eager_ms, _ = profiled_ms(lambda: runner.trace_fn()(*g.inputs))
-    if not any("window_gather" in n for n in names):
-        fail(f"{label}: the profiler shows no window gather in a replay: "
-             f"{names[:10]}")
+    # a kernel every step of the path's plan launches: the window gathers
+    # of a UT plan, else the blocked route's diagonal-block kernel
+    marker = ("window_gather" if predicted_launches(ctx)["window_gather2"]
+              else "getrf_inv" if is_lu(ctx) else "potrf_inv")
+    if not any(marker in n for n in names):
+        fail(f"{label}: the profiler shows no {marker} kernel in a "
+             f"replay: {names[:10]}")
     if not 0.9 <= replay_ms / eager_ms <= 1.1:
         fail(f"{label}: a replay's device time {replay_ms:.3f} ms is not "
              f"within 10% of the eager walk's {eager_ms:.3f} ms")
@@ -1743,6 +1801,9 @@ def main(argv) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     _LOG.append(open(os.path.join(ROOT, "chiprun_out", "chip_smoke.log"),
                      "w"))
+    def mark(phase: str) -> None:
+        log(f"[phase] {phase} ends at {time.perf_counter() - t_start:.1f} s")
+
     import spfx_torch
     from spfx_torch import Config
     from spfx_torch.bench.kernel_probe import (plan_extend_calls,
@@ -1767,6 +1828,8 @@ def main(argv) -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+
+    mark("2 build")
 
     # 3. kernels against their plain versions, at the 48^3 plans' calls
     A = generate.laplacian_3d(GRID)
@@ -1812,6 +1875,8 @@ def main(argv) -> int:
     del pcalls, lcalls
     torch.cuda.empty_cache()
 
+    mark("3 and 3b")
+
     # 3c. the whole-panel kernels at every PC step of the 48^3 plans
     for lu, c in ((False, ctx), (True, lctx)):
         calls = panel_calls(c, dev)
@@ -1838,6 +1903,8 @@ def main(argv) -> int:
         rows.update(prow)
         del calls
         torch.cuda.empty_cache()
+
+    mark("3c")
 
     # 3d. extend_add_rows at every UT step of the 48^3 Cholesky plan
     # and extend_add_rows2 at every UT step of the 48^3 LU plan
@@ -1866,6 +1933,8 @@ def main(argv) -> int:
     del ecalls
     torch.cuda.empty_cache()
 
+    mark("3d")
+
     # 3e. cholesky_small_batched (no path runs it)
     t0 = time.perf_counter()
     cerr = check_chol_small(dev, gen)
@@ -1880,6 +1949,8 @@ def main(argv) -> int:
         + f" ({time.perf_counter() - t0:.1f} s); f32 timing "
         + json.dumps(rows["cholesky_small_batched"]))
     torch.cuda.empty_cache()
+
+    mark("3e")
 
     # 4. Cholesky main path, 48^3 f32 with the default Config; 4c. the same
     # under SPFX_PANEL_KERNEL=lanes, then wide
@@ -1899,10 +1970,31 @@ def main(argv) -> int:
                     device_ms[path] = profile_pass(
                         c, A, "chip_smoke_profile" + ("_lu" if lu else "")
                         + ("" if mode is None else f"_{mode}"))
+    mark("4, 4b and 4c")
+
+    # 4d. UC buckets, the rowwin layout and the fused engine, both kinds,
+    # on the 48^3 analysis
+    for lu in (False, True):
+        for tag, kw in LAYOUT_CONFIGS:
+            kind = spfx_torch.LU if lu else spfx_torch.Cholesky
+            lc = kind(A, Config(**kw), sym=ctx.sym, device=dev)
+            path = f"{'lu' if lu else 'cholesky'}_{tag}"
+            label = f"{'LU' if lu else 'main'} {GRID}^3 float32 {tag}"
+            log(f"[plan] {label}: plan {lc.plan_time:.2f} s "
+                + json.dumps(plan_summary(lc)))
+            extras = {"uc": ("replay", "graph"),
+                      "rowwin": ("replay", "graph", "solve")}.get(
+                          tag, ("replay",))
+            _, paths[path], graph_paths[path], _ = main_path(
+                lc, A, label, extras=extras)
+            del lc
+            torch.cuda.empty_cache()
     del ctx, lctx, c
     torch.cuda.empty_cache()
     if device_ms:
         log("[profile] device ms by path " + json.dumps(device_ms))
+
+    mark("4d")
 
     # 5. f64 at 32^3; 5c. the same under lanes, without refinement
     A32 = generate.laplacian_3d(GRID_F64)
@@ -1927,6 +2019,8 @@ def main(argv) -> int:
                   unrefined_limit=1e-12)
     del lctx64
 
+    mark("5, 5b and 5c")
+
     # 6. the card against the CPU (plain versions), 12^3 f64, Cholesky and
     # (6b) LU with unsymmetric values, both flat factors; 6c. the same
     # under each panel route
@@ -1949,11 +2043,33 @@ def main(argv) -> int:
                 fail(f"card and CPU factors ({name}{tag}) differ by "
                      f"{rel:.3e}")
 
+    # 6f. the same under the configs of phase 4d
+    for tag, kw in LAYOUT_CONFIGS:
+        cfg = Config(dtype="float64", **kw)
+        fgs = (spfx_torch.cholesky(A12, cfg, device=dev),
+               spfx_torch.lu(A12u, cfg, device=dev))
+        fcs = (spfx_torch.cholesky(A12, cfg, device="cpu"),
+               spfx_torch.lu(A12u, cfg, device="cpu"))
+        for fg, fc in zip(fgs, fcs):
+            for name, g, c in zip(("L",) if fg is fgs[0]
+                                  else ("LU unsym Lx", "LU unsym Ux"),
+                                  factor_arrays(fg), factor_arrays(fc)):
+                rel = float((g.cpu() - c).abs().max() / c.abs().max())
+                log(f"[card vs cpu] {GRID_CPU}^3 f64 {tag} {name} max rel "
+                    f"diff {rel:.3e}")
+                if not rel <= 1e-10:
+                    fail(f"card and CPU factors ({name} {tag}) differ by "
+                         f"{rel:.3e}")
+
+    mark("6, 6b, 6c and 6f")
+
     # 6e. the surfaces: CLI, checkpoints, profile scope
     t0 = time.perf_counter()
     surfaces(dev)
     log(f"[surfaces] CLI, checkpoints and profile scope at {GRID_CPU}^3 "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    mark("6e")
 
     # 6d. syrk_gemm_batched on both of its paths, then the panel bench,
     # its launches a path of its own
@@ -1969,6 +2085,8 @@ def main(argv) -> int:
         f"({time.perf_counter() - t0:.1f} s); f32 timing "
         + json.dumps(rows["syrk_gemm_batched"]))
     torch.cuda.empty_cache()
+
+    mark("6d")
 
     # 7. the kernels line: launches from the kernel's own path (window
     # gathers, extend_add_rows and potrf_inv: Cholesky; getrf_inv: LU; each

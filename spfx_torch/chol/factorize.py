@@ -4,12 +4,15 @@ Port of spfx/chol/factorize.py. The host builds the same symbolic analysis
 and the same static plan as the JAX package (``spfx_torch.symbolic``,
 ``spfx_torch.plan``). The device then scatters the permuted lower-triangle
 values into one flat panel tensor and walks the plan's levels, in place:
-each level's UT update buckets (``blocks.apply_updates_sym_t``), then its
-PC panel buckets (``blocks.factor_panels_chol_u``), with the panel-kernel
-family that ``SPFX_PANEL_KERNEL`` selects, read once per factorization
-(``kernels/route.py``). The walk is ``kernels.mega.MegaRunner``'s: with the
-default ``engine="mega"`` one CUDA-graph replay per factorization on the
-card, with ``engine="calls"`` the eager walk.
+each level's update buckets (UT by default, ``blocks.apply_updates_sym_t``;
+UC under ``update_tile=0``; rowwin U under ``layout="rowwin"``), then its
+panel buckets (PC, ``blocks.factor_panels_chol_u``; rowwin P), with the
+panel-kernel family that ``SPFX_PANEL_KERNEL`` selects, read once per
+factorization (``kernels/route.py``). The walk is
+``kernels.mega.MegaRunner``'s: with the default ``engine="mega"`` one
+CUDA-graph replay per factorization on the card, with ``engine="calls"``
+the eager walk; ``engine="fused"`` (rowwin plans) runs it in chunks of
+levels, one graph each (``kernels.fused.FusedRunner``).
 
 The solve runs the native f64 supernodal solve on the copied-back factor
 (``solve_backend="host"``, and ``"auto"`` where the native library is
@@ -32,7 +35,8 @@ import scipy.sparse as sp
 import torch
 
 from spfx_torch.kernels.mega import _PRECISION, MegaRunner, MegaSolver
-from spfx_torch.plan.schedule import ALIGN, FactorPlan, build_plan
+from spfx_torch.plan.schedule import (ALIGN, FactorPlan, PanelBucketC,
+                                     UpdateBucketC, build_plan)
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
 
@@ -49,15 +53,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def engine_of(config: Config) -> str:
+    """The config's engine: "mega", "calls" or "fused" (``fused=True`` is
+    the deprecated alias of ``engine="fused"``)."""
+    return "fused" if config.fused else config.engine
+
+
 def check_config(config: Config) -> None:
     """Raise on the options this port does not implement yet."""
-    if config.layout != "contig":
-        raise NotImplementedError(
-            "layout='rowwin' is not ported (ROADMAP Queue 1 item 6)")
-    if not int(config.update_tile or 0):
-        raise NotImplementedError(
-            "update_tile=0 (UC buckets) is not ported (ROADMAP Queue 1 "
-            "item 6)")
+    if config.layout not in ("contig", "rowwin"):
+        raise ValueError(f"unknown layout {config.layout!r}")
     if "complex" in config.dtype:
         raise NotImplementedError(
             "complex dtypes are not ported (ROADMAP Queue 1 item 6)")
@@ -65,10 +70,7 @@ def check_config(config: Config) -> None:
         raise ValueError(f"unsupported dtype {config.dtype!r}")
     if config.solve_backend not in ("auto", "host", "device"):
         raise ValueError(f"unknown solve_backend {config.solve_backend!r}")
-    if config.fused or config.engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' is not ported (ROADMAP Queue 1 item 6)")
-    if config.engine not in ("mega", "calls"):
+    if engine_of(config) not in ("mega", "calls", "fused"):
         raise ValueError(f"unknown engine {config.engine!r}")
     for p in (config.matmul_precision, config.update_precision):
         if p == "high":
@@ -79,25 +81,47 @@ def check_config(config: Config) -> None:
             raise ValueError(f"unknown matmul precision {p!r}")
 
 
+def _check_starts(starts, extent: int, storage: int, what: str) -> None:
+    s = np.asarray(starts, np.int64)
+    s = s[s >= 0]
+    if len(s) and s.max() + extent > storage:
+        raise ValueError(f"plan has {what} past the end of storage")
+
+
 def check_windows(plan: FactorPlan) -> None:
-    """Every live aligned-down gather superwindow of every UT bucket ends
-    inside the flat storage: the gather kernels never clip. And every
-    extend-add stays in its slab: the slab ends inside the storage, the
-    row table has one entry per row of the step's E, B * (mp + ALIGN/kp),
-    and every live entry is a row of the slab (the kernel traps on one
-    that is not)."""
+    """Every window a step reads or writes ends inside the flat storage,
+    for each bucket kind by its own tables: the gathers never clip. UT: the
+    aligned-down source and head superwindows. UC: the (mp x kp) source
+    window. Rowwin U and P: every row window. PC: the bucket's block. And
+    every extend-add (UT, UC) stays in its slab: the slab ends inside the
+    storage, the row table has one entry per row of the step's E (UT: B *
+    (mp + ALIGN/kp), UC: B * mp), and every live entry is a row of the slab
+    (the kernel traps on one that is not); every placed column is one of
+    the target's."""
+    st = plan.storage
     for lp in plan.levels:
         for ub in lp.updates:
-            ext = ALIGN // ub.kp
-            for starts, rows in ((ub.src_start, ub.mp + ext),
-                                 (ub.head_start, ub.tgt_cpos.shape[1])):
-                s = np.asarray(starts, np.int64)
-                s = s[s >= 0]
-                if len(s) and (s // ALIGN * ALIGN + rows * ub.kp).max() \
-                        > plan.storage:
-                    raise ValueError("plan has a gather superwindow past "
-                                     "the end of storage")
-            if int(ub.slab_lo[0]) + ub.slab_rows * ub.csp > plan.storage:
+            if np.asarray(ub.tgt_cpos).max(initial=-1) >= ub.csp:
+                raise ValueError("plan has an update column past its "
+                                 "target width")
+            if not isinstance(ub, UpdateBucketC):
+                _check_starts(ub.src_row_start, ub.kp, st,
+                              "a source row window")
+                _check_starts(ub.tgt_row_start, ub.csp, st,
+                              "a target row window")
+                continue
+            if ub.head_start is not None:
+                ext = ALIGN // ub.kp
+                for starts, rows in ((ub.src_start, ub.mp + ext),
+                                     (ub.head_start, ub.tgt_cpos.shape[1])):
+                    s = np.asarray(starts, np.int64)
+                    _check_starts(np.where(s >= 0, s // ALIGN * ALIGN, -1),
+                                  rows * ub.kp, st, "a gather superwindow")
+            else:
+                ext = 0
+                _check_starts(ub.src_start, ub.mp * ub.kp, st,
+                              "a source window")
+            if int(ub.slab_lo[0]) + ub.slab_rows * ub.csp > st:
                 raise ValueError("plan has an extend-add slab past the end "
                                  "of storage")
             if ub.tgt_lrow.size != len(ub.kw) * (ub.mp + ext):
@@ -106,6 +130,29 @@ def check_windows(plan: FactorPlan) -> None:
                     f" entries for {len(ub.kw) * (ub.mp + ext)} update rows")
             if ub.tgt_lrow.size and int(ub.tgt_lrow.max()) >= ub.slab_rows:
                 raise ValueError("plan has an extend-add row past its slab")
+        for pb in lp.panels:
+            if isinstance(pb, PanelBucketC):
+                _check_starts(pb.slab_lo, len(pb.widths) * (pb.cp + pb.rbp)
+                              * pb.cp, st, "a panel block")
+            else:
+                cp = pb.diag_row_start.shape[1]
+                _check_starts(pb.diag_row_start, cp, st,
+                              "a diagonal row window")
+                _check_starts(pb.below_row_start, cp, st,
+                              "a below row window")
+
+
+def make_engine(ctx, lu: bool):
+    """The (runner, solver) pair of a context's engine: ``FusedRunner`` /
+    ``FusedSolver`` for "fused" (rowwin plans only: raises ValueError on a
+    contig plan), else ``MegaRunner`` / ``MegaSolver``."""
+    if engine_of(ctx.config) == "fused":
+        from spfx_torch.kernels.fused import FusedRunner, FusedSolver
+        kinds = FusedRunner, FusedSolver
+    else:
+        kinds = MegaRunner, MegaSolver
+    return tuple(k(ctx.plan, lu=lu, config=ctx.config, device=ctx.device)
+                 for k in kinds)
 
 
 def use_host_solve(config: Config) -> bool:
@@ -293,15 +340,12 @@ class Cholesky:
         t0 = time.perf_counter()
         vals = self.entry_values(A)
         if self._runner is None:
-            self._runner = MegaRunner(self.plan, lu=False, config=self.config,
-                                      device=self.device)
-            self._solver = MegaSolver(self.plan, lu=False, config=self.config,
-                                      device=self.device)
+            self._runner, self._solver = make_engine(self, lu=False)
         with profile_scope(self.config, "factorize"):
-            if self.config.engine == "mega":
-                L = self._runner.run(vals)      # one graph replay on the card
-            else:
+            if engine_of(self.config) == "calls":
                 L = self._runner.trace_fn()(vals)
+            else:
+                L = self._runner.run(vals)      # graph replays on the card
         f = CholeskyFactor(A, self.sym, self.plan, L, self.config,
                            solver=self._solver)
         return finish_factorize(self, f, t0)

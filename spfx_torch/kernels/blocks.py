@@ -25,13 +25,34 @@ layout; an LU step runs the Cholesky step's gathers once per array, with
 crossed products (C_L = G_L H_U^T, C_U = G_U H_L^T), and one twin
 extend-add (``extend_add.extend_add_rows2``) into both arrays.
 
+The non-default bucket kinds, none of which reaches a Pallas kernel in
+the JAX package:
+
+- UC update step (``Config(update_tile=0)``): one contiguous (mp x kp)
+  source window per task at an unaligned start (``_task_gather``, plain
+  indexing, as JAX's XLA gather), the product against the window's
+  leading rows, the column placement, then the same ``extend_add_rows``
+  launch (LU: ``extend_add_rows2``) over the bucket's flat ``tgt_lrow`` as
+  the UT step: the port's form of ``extend_add_slab``.
+- rowwin layout (``Config(layout="rowwin")``): one window per panel row
+  (``_win_gather``; ``_win_scatter_add``, an ``index_add_``, for the
+  write-back), start < 0 reading zeros and dropping the row. The U step
+  is gather, product, placement, scatter. The P step gathers the diagonal
+  and below blocks and sends them through the same routers as the PC
+  step (``_chol_deltas_blocks``, ``_lu_deltas_blocks``), so
+  ``panel.potrf_inv`` / ``panel.getrf_inv`` and the ``SPFX_PANEL_KERNEL``
+  routes run there too; JAX factors these blocks with ``lax.linalg``,
+  which the port would have to run as library calls, while the routers'
+  deltas are already held against JAX's at the same tolerances.
+
 - level solves (the device solve): ``solve_fwd_level_c`` and
-  ``solve_bwd_level_c`` solve one PC bucket's diagonal blocks against the
-  right-hand sides and carry the below blocks' products to the rows
-  below, in place on x (n + 1, nrhs). No Pallas kernel computes them in
-  the JAX package (off the TPU its triangular solves are
-  ``lax.linalg.triangular_solve``), so they are library calls here:
-  ``torch.linalg.solve_triangular`` and ``torch.bmm``.
+  ``solve_bwd_level_c`` (PC buckets), ``solve_fwd_level`` and
+  ``solve_bwd_level`` (rowwin P buckets) solve one bucket's diagonal
+  blocks against the right-hand sides and carry the below blocks'
+  products to the rows below, in place on x (n + 1, nrhs). No Pallas
+  kernel computes them in the JAX package (off the TPU its triangular
+  solves are ``lax.linalg.triangular_solve``), so they are library calls
+  here: ``torch.linalg.solve_triangular`` and ``torch.bmm``.
 """
 
 from __future__ import annotations
@@ -251,6 +272,184 @@ def apply_updates_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
     return Lx, Ux
 
 
+def _task_gather(L, starts, rows: int, win: int):
+    """(B,) task starts -> (B, rows, win) contiguous blocks of L; start < 0
+    gives zeros."""
+    return _win_gather(L, starts[:, None], rows * win).view(
+        starts.shape[0], rows, win)
+
+
+# --------------------------------------------------------------------------
+# UC update step (Config(update_tile=0)): one contiguous window per task
+# --------------------------------------------------------------------------
+
+def _sym_rows(G, tgt_cpos, csp: int):
+    """Update rows E = C placed by tgt_cpos, C = G G_N^T, where the N block
+    G_N is G's leading Np rows (UC and rowwin U steps)."""
+    np_ = tgt_cpos.shape[1]
+    return _place_cols(torch.bmm(G, G[:, :np_, :].transpose(1, 2)),
+                       tgt_cpos, csp)
+
+
+def _lu_rows(GL, GU, tgt_cpos, csp: int):
+    """LU update rows (EL, EU): the crossed products CL = GL GU_N^T and
+    CU = GU GL_N^T, each placed by tgt_cpos (see _sym_rows)."""
+    np_ = tgt_cpos.shape[1]
+    CL = torch.bmm(GL, GU[:, :np_, :].transpose(1, 2))
+    CU = torch.bmm(GU, GL[:, :np_, :].transpose(1, 2))
+    return _place_cols(CL, tgt_cpos, csp), _place_cols(CU, tgt_cpos, csp)
+
+
+def update_rows_sym_c(L, kw, mrows, src_start, tgt_cpos, mp: int, kp: int,
+                      csp: int):
+    """Update rows E (B, mp, csp) of one UC bucket: each task's contiguous
+    (mp x kp) source window (k-masked to kw, row-masked to mrows) against
+    its own leading rows (the N block)."""
+    G = _task_gather(L, src_start, mp, kp) \
+        * _col_mask(kw, kp, L.dtype)[:, None, :] \
+        * _row_mask(mrows, mp, L.dtype)[:, :, None]
+    return _sym_rows(G, tgt_cpos, csp)
+
+
+def apply_updates_sym_c(L, kw, mrows, src_start, slab_lo: int, tgt_rows,
+                        tgt_cpos, mp: int, kp: int, csp: int, srows: int):
+    """One UC update step, in place: update rows, then one
+    ``extend_add.extend_add_rows`` launch into the slab at slab_lo, as
+    ``apply_updates_sym_t``."""
+    E = update_rows_sym_c(L, kw, mrows, src_start, tgt_cpos, mp, kp, csp)
+    extend_add.extend_add_rows(slab_view(L, slab_lo, srows, csp), tgt_rows,
+                               E.reshape(-1, csp))
+    return L
+
+
+def update_rows_lu_c(Lx, Ux, kw, mrows, src_start, tgt_cpos, mp: int,
+                     kp: int, csp: int):
+    """LU update rows (EL, EU) of one UC bucket: the windows of
+    update_rows_sym_c from each array, crossed (``_lu_rows``)."""
+    m = _col_mask(kw, kp, Lx.dtype)[:, None, :] \
+        * _row_mask(mrows, mp, Lx.dtype)[:, :, None]
+    return _lu_rows(_task_gather(Lx, src_start, mp, kp) * m,
+                    _task_gather(Ux, src_start, mp, kp) * m, tgt_cpos, csp)
+
+
+def apply_updates_lu_c(Lx, Ux, kw, mrows, src_start, slab_lo: int, tgt_rows,
+                       tgt_cpos, mp: int, kp: int, csp: int, srows: int):
+    """One LU UC update step, in place on Lx and Ux: update rows, then one
+    ``extend_add.extend_add_rows2`` launch, as ``apply_updates_lu_t``."""
+    EL, EU = update_rows_lu_c(Lx, Ux, kw, mrows, src_start, tgt_cpos, mp, kp,
+                              csp)
+    extend_add.extend_add_rows2(
+        slab_view(Lx, slab_lo, srows, csp), slab_view(Ux, slab_lo, srows, csp),
+        tgt_rows, EL.reshape(-1, csp), EU.reshape(-1, csp))
+    return Lx, Ux
+
+
+# --------------------------------------------------------------------------
+# rowwin layout: one window per panel row
+# --------------------------------------------------------------------------
+
+def _win_gather(L, starts, win: int):
+    """(B, X) row starts -> (B, X, win) windows of L; start < 0 reads
+    zeros."""
+    live = starts >= 0
+    idx = (torch.where(live, starts, 0).long()[..., None]
+           + torch.arange(win, device=L.device))
+    return torch.where(live[..., None], L[idx], 0)
+
+
+def _win_scatter_add(L, starts, upd, alpha: float = 1.0):
+    """L[s : s + win] += alpha * upd row by row, in place, for row starts
+    ``starts`` (any shape) and rows ``upd`` (starts.shape + (win,)); start
+    < 0 drops the row. Windows may overlap (``index_add_`` sums them); a
+    dropped row adds exact zeros at the start of L."""
+    win = upd.shape[-1]
+    if starts.numel() == 0 or win == 0:
+        return L
+    starts = starts.reshape(-1)
+    live = starts >= 0
+    idx = (torch.where(live, starts, 0).long()[:, None]
+           + torch.arange(win, device=L.device))
+    vals = torch.where(live[:, None], upd.reshape(-1, win), 0)
+    return L.index_add_(0, idx.reshape(-1), vals.reshape(-1), alpha=alpha)
+
+
+def update_rows_sym(L, kw, src_row_start, tgt_cpos, kp: int, csp: int):
+    """Update rows E (B, Mp, csp) of one rowwin U bucket: the source rows'
+    kp-windows (k-masked to kw) against their leading Np rows."""
+    G = _win_gather(L, src_row_start, kp) \
+        * _col_mask(kw, kp, L.dtype)[:, None, :]
+    return _sym_rows(G, tgt_cpos, csp)
+
+
+def apply_updates_sym(L, kw, src_row_start, tgt_row_start, tgt_cpos,
+                      kp: int, csp: int):
+    """One rowwin U step, in place: L[tgt_row_start] -= E, row by row."""
+    E = update_rows_sym(L, kw, src_row_start, tgt_cpos, kp, csp)
+    return _win_scatter_add(L, tgt_row_start, E, alpha=-1.0)
+
+
+def update_rows_lu(Lx, Ux, kw, src_row_start, tgt_cpos, kp: int, csp: int):
+    """LU update rows (EL, EU) of one rowwin U bucket: the windows of
+    update_rows_sym from each array, crossed (``_lu_rows``)."""
+    km = _col_mask(kw, kp, Lx.dtype)[:, None, :]
+    return _lu_rows(_win_gather(Lx, src_row_start, kp) * km,
+                    _win_gather(Ux, src_row_start, kp) * km, tgt_cpos, csp)
+
+
+def apply_updates_lu(Lx, Ux, kw, src_row_start, tgt_row_start, tgt_cpos,
+                     kp: int, csp: int):
+    """One LU rowwin U step, in place on Lx and Ux."""
+    EL, EU = update_rows_lu(Lx, Ux, kw, src_row_start, tgt_cpos, kp, csp)
+    _win_scatter_add(Lx, tgt_row_start, EL, alpha=-1.0)
+    _win_scatter_add(Ux, tgt_row_start, EU, alpha=-1.0)
+    return Lx, Ux
+
+
+def panel_deltas_chol(L, widths, nbelow, diag_row_start, below_row_start,
+                      mode: str = "blocked"):
+    """Cholesky panel deltas (dD (B, cp, cp), dB (B, rbp, cp)) of one
+    rowwin P bucket, through ``_chol_deltas_blocks``."""
+    cp, rbp = diag_row_start.shape[1], below_row_start.shape[1]
+    return _chol_deltas_blocks(_win_gather(L, diag_row_start, cp),
+                               _win_gather(L, below_row_start, cp),
+                               widths, nbelow, cp, rbp, mode)
+
+
+def factor_panels_chol(L, widths, nbelow, diag_row_start, below_row_start,
+                       mode: str = "blocked"):
+    """Factor one rowwin P bucket IN PLACE: the deltas added back row by
+    row (dead columns carry exact zeros, so overlapping windows are
+    untouched)."""
+    dD, dB = panel_deltas_chol(L, widths, nbelow, diag_row_start,
+                               below_row_start, mode)
+    _win_scatter_add(L, diag_row_start, dD)
+    return _win_scatter_add(L, below_row_start, dB)
+
+
+def panel_deltas_lu(Lx, Ux, widths, nbelow, diag_row_start,
+                    below_row_start, mode: str = "blocked"):
+    """LU panel deltas (dDL, dBL, dDU, dBU) of one rowwin P bucket, through
+    ``_lu_deltas_blocks``."""
+    cp, rbp = diag_row_start.shape[1], below_row_start.shape[1]
+    DL, DU, BL, BU = (_win_gather(F, starts, cp)
+                      for starts in (diag_row_start, below_row_start)
+                      for F in (Lx, Ux))
+    return _lu_deltas_blocks(DL, DU, BL, BU, widths, nbelow, cp, rbp, mode)
+
+
+def factor_panels_lu(Lx, Ux, widths, nbelow, diag_row_start,
+                     below_row_start, mode: str = "blocked"):
+    """Factor one rowwin LU P bucket IN PLACE on Lx and Ux."""
+    dDL, dBL, dDU, dBU = panel_deltas_lu(Lx, Ux, widths, nbelow,
+                                         diag_row_start, below_row_start,
+                                         mode)
+    _win_scatter_add(Lx, diag_row_start, dDL)
+    _win_scatter_add(Lx, below_row_start, dBL)
+    _win_scatter_add(Ux, diag_row_start, dDU)
+    _win_scatter_add(Ux, below_row_start, dBU)
+    return Lx, Ux
+
+
 def lu_front(DLraw, DUraw, widths):
     """The square LU front Mf (B, cp, cp) of a panel bucket's diagonal
     windows, masked to the live width: L side on and below the diagonal
@@ -357,23 +556,13 @@ def factor_panels_lu_u(Lx, Ux, widths, nbelow, slab_lo: int, cp: int,
 
 
 # --------------------------------------------------------------------------
-# Supernodal triangular solves, batched per level (contig layout)
+# Supernodal triangular solves, batched per level
 # --------------------------------------------------------------------------
 
 def _x_idx(x, g):
     """Rows of x for the global indices ``g``; -1 reads and writes the
     sentinel row n of x (n + 1, nrhs)."""
     return torch.where(g >= 0, g, x.shape[0] - 1).long()
-
-
-def _task_gather(L, starts, rows: int, win: int):
-    """(B,) task starts -> (B, rows, win) contiguous blocks of L; start < 0
-    gives zeros."""
-    live = starts >= 0
-    idx = (torch.where(live, starts, 0).long()[:, None]
-           + torch.arange(rows * win, device=L.device)[None, :])
-    out = torch.where(live[:, None], L[idx], 0)
-    return out.view(starts.shape[0], rows, win)
 
 
 def _panel_parts_c(L, widths, nbelow, diag_start, below_start, cp: int,
@@ -393,23 +582,51 @@ def _panel_parts_c(L, widths, nbelow, diag_start, below_start, cp: int,
     return L11, L21
 
 
-def solve_fwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
-                      xrows, cp: int, rbp: int, lu: bool = False):
-    """x[cols] = L11^{-1} x[cols]; x[below] -= L21 x[cols], for every task
-    of one PC bucket, in place on x (n + 1, nrhs); returns x. L11 is unit
-    for LU (``lu``). Several tasks may carry into one row below, so the
-    subtraction is an ``index_add_``."""
-    L11, L21 = _panel_parts_c(F, widths, nbelow, diag_start, below_start,
-                              cp, rbp)
+def _panel_parts(L, widths, diag_row_start, below_row_start):
+    """(L11, L21) of one rowwin P bucket: the row windows, masked to the
+    live widths (dead rows read zeros); dead columns of L11 carry a unit
+    diagonal."""
+    cp = diag_row_start.shape[1]
+    cm = _col_mask(widths, cp, L.dtype)
+    L11 = _win_gather(L, diag_row_start, cp) * cm[:, None, :] \
+        + torch.diag_embed(1.0 - cm)
+    return L11, _win_gather(L, below_row_start, cp) * cm[:, None, :]
+
+
+def _solve_fwd(L11, L21, x, xcols, xrows, lu: bool):
+    """x[cols] = L11^{-1} x[cols]; x[below] -= L21 x[cols], in place.
+    Several tasks may carry into one row below, so the subtraction is an
+    ``index_add_``."""
     ic = _x_idx(x, xcols)
     y = torch.linalg.solve_triangular(L11, x[ic], upper=False,
                                       unitriangular=lu)
     x[ic] = y
-    if rbp:
+    if L21.shape[1]:
         upd = torch.bmm(L21, y)
         x.index_add_(0, _x_idx(x, xrows).reshape(-1),
                      upd.reshape(-1, x.shape[1]), alpha=-1)
     return x
+
+
+def _solve_bwd(L11, L21, x, xcols, xrows):
+    """x[cols] = L11^{-T} (x[cols] - L21^T x[below]), in place."""
+    ic = _x_idx(x, xcols)
+    t = x[ic]
+    if L21.shape[1]:
+        t = t - torch.bmm(L21.transpose(1, 2), x[_x_idx(x, xrows)])
+    x[ic] = torch.linalg.solve_triangular(L11.transpose(1, 2), t,
+                                          upper=True)
+    return x
+
+
+def solve_fwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
+                      xrows, cp: int, rbp: int, lu: bool = False):
+    """x[cols] = L11^{-1} x[cols]; x[below] -= L21 x[cols], for every task
+    of one PC bucket, in place on x (n + 1, nrhs); returns x. L11 is unit
+    for LU (``lu``)."""
+    L11, L21 = _panel_parts_c(F, widths, nbelow, diag_start, below_start,
+                              cp, rbp)
+    return _solve_fwd(L11, L21, x, xcols, xrows, lu)
 
 
 def solve_bwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
@@ -419,10 +636,21 @@ def solve_bwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
     diagonal block (not unit)."""
     L11, L21 = _panel_parts_c(F, widths, nbelow, diag_start, below_start,
                               cp, rbp)
-    ic = _x_idx(x, xcols)
-    t = x[ic]
-    if rbp:
-        t = t - torch.bmm(L21.transpose(1, 2), x[_x_idx(x, xrows)])
-    x[ic] = torch.linalg.solve_triangular(L11.transpose(1, 2), t,
-                                          upper=True)
-    return x
+    return _solve_bwd(L11, L21, x, xcols, xrows)
+
+
+def solve_fwd_level(F, x, widths, diag_row_start, below_row_start, xcols,
+                    xrows, lu: bool = False):
+    """``solve_fwd_level_c`` for one rowwin P bucket (JAX's
+    ``solve_fwd_level``; with ``lu``, unit L: ``solve_fwd_level_lu``)."""
+    L11, L21 = _panel_parts(F, widths, diag_row_start, below_row_start)
+    return _solve_fwd(L11, L21, x, xcols, xrows, lu)
+
+
+def solve_bwd_level(F, x, widths, diag_row_start, below_row_start, xcols,
+                    xrows, lu: bool = False):
+    """``solve_bwd_level_c`` for one rowwin P bucket (JAX's
+    ``solve_bwd_level``; for LU, F is U^T: ``solve_bwd_level_lu``). ``lu``
+    changes nothing here: U's diagonal block is not unit."""
+    L11, L21 = _panel_parts(F, widths, diag_row_start, below_row_start)
+    return _solve_bwd(L11, L21, x, xcols, xrows)

@@ -4,8 +4,10 @@
 Port of spfx/kernels/mega.py. The JAX runner compiles the whole step list
 into one ``lax.scan`` with a ``lax.switch`` over shape classes, so one
 factorization is one dispatch. Here the walk stays the plain Python loop
-over the plan's levels (``MegaRunner._once``): the assembly, then per level
-its UT update buckets and its PC panel buckets. On a CUDA device the runner
+over the plan's levels (``walk_levels``): the assembly, then per level its
+update buckets and its panel buckets, each dispatched by its kind as JAX's
+per-call walk does (``update_step``: UT, UC or rowwin U; ``panel_step``: PC
+or rowwin P). On a CUDA device the runner
 captures that walk once per panel mode into a CUDA graph, and every later
 factorization is one replay of it. The ``lax.switch`` machinery (packed
 class tables, region-return branches) is not ported: a graph replays
@@ -25,10 +27,12 @@ Each ``run`` copies the new entry values in, replays the graph and returns
 a clone of the factor: the graph's output lives in its private memory pool
 and the next replay overwrites it.
 
-``MegaSolver`` runs the contig level solves (``blocks.solve_fwd_level_c``,
-``blocks.solve_bwd_level_c``) over the levels' PC buckets, forward in
-order and backward in reverse; on a CUDA device one graph per factor and
-right-hand-side count, cached by the factor, holds both sweeps.
+``MegaSolver`` runs the level solves over the levels' panel buckets
+(``blocks.solve_fwd_level_c`` / ``solve_bwd_level_c`` on PC buckets,
+``blocks.solve_fwd_level`` / ``solve_bwd_level`` on rowwin P buckets),
+forward in order and backward in reverse; on a CUDA device one graph per
+factor and right-hand-side count, cached by the factor, holds both
+sweeps.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from spfx_torch.kernels import _cuda, blocks, route
+from spfx_torch.plan.schedule import PanelBucketC, UpdateBucketC
 from spfx_torch.utils.config import Config, DEFAULT
 
 # JAX matmul precision -> torch float32 matmul precision. "default" and
@@ -85,10 +90,11 @@ class _Graph:
     outputs: tuple
 
 
-def _capture(device, fn, inputs) -> tuple:
+def _capture(device, fn, inputs, pool=None) -> tuple:
     """Warm ``fn(*inputs)`` up once eagerly on a side stream, then capture
-    it into a CUDA graph. Returns (graph, outputs, warm-up s, capture s,
-    launch counts of the capture)."""
+    it into a CUDA graph (in the memory pool ``pool``, a private one when
+    None). Returns (graph, outputs, warm-up s, capture s, launch counts of
+    the capture)."""
     with torch.cuda.device(device):
         t0 = time.perf_counter()
         side = torch.cuda.Stream()
@@ -102,13 +108,76 @@ def _capture(device, fn, inputs) -> tuple:
         graph = torch.cuda.CUDAGraph()
         # thread_local: a host thread that plans the next matrix (the CLI's
         # prefetch) may call the CUDA runtime meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
             out = fn(*inputs)
         after = _cuda.launch_counts()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     return (graph, out, t1 - t0, t2 - t1,
             {k: after[k] - before[k] for k in after})
+
+
+def update_step(arrays, ub, device, lu: bool) -> None:
+    """One update bucket, in place on ``arrays`` ((L,) or (Lx, Ux)), by its
+    kind: UT (``UpdateBucketC`` with head windows), UC (without) or rowwin
+    U (``UpdateBucket``)."""
+    if not isinstance(ub, UpdateBucketC):
+        fn = blocks.apply_updates_lu if lu else blocks.apply_updates_sym
+        fn(*arrays, *ub.to(device), kp=ub.kp, csp=ub.csp)
+        return
+    slab_lo = int(ub.slab_lo[0])
+    if ub.head_start is not None:
+        kw, mrows, rstart, src_start, head_start, _, rows, tgt_cpos = \
+            ub.to(device)
+        fn = blocks.apply_updates_lu_t if lu else blocks.apply_updates_sym_t
+        fn(*arrays, kw, mrows, rstart, src_start, head_start, slab_lo, rows,
+           tgt_cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp, srows=ub.slab_rows)
+        return
+    kw, mrows, src_start, _, rows, tgt_cpos = ub.to(device)
+    fn = blocks.apply_updates_lu_c if lu else blocks.apply_updates_sym_c
+    fn(*arrays, kw, mrows, src_start, slab_lo, rows, tgt_cpos, mp=ub.mp,
+       kp=ub.kp, csp=ub.csp, srows=ub.slab_rows)
+
+
+def panel_step(arrays, pb, device, lu: bool, mode: str) -> None:
+    """One panel bucket, in place, by its kind: PC (``PanelBucketC``, one
+    uniform block) or rowwin P (``PanelBucket``), under panel mode
+    ``mode``."""
+    if isinstance(pb, PanelBucketC):
+        widths, nbelow, _ = pb.to_u(device)
+        fn = blocks.factor_panels_lu_u if lu else blocks.factor_panels_chol_u
+        fn(*arrays, widths, nbelow, int(pb.slab_lo[0]), cp=pb.cp,
+           rbp=pb.rbp, mode=mode)
+        return
+    fn = blocks.factor_panels_lu if lu else blocks.factor_panels_chol
+    fn(*arrays, *pb.to_f(device), mode=mode)
+
+
+def walk_levels(arrays, levels, lu: bool, config: Config, device,
+                mode: str) -> None:
+    """The left-looking level walk over ``levels``, in place: per level
+    its pending updates (at the config's update precision), then its
+    panels."""
+    upd_ctx = update_precision(config)
+    with matmul_precision(config.matmul_precision):
+        for lp in levels:
+            with upd_ctx():
+                for ub in lp.updates:
+                    update_step(arrays, ub, device, lu)
+            for pb in lp.panels:
+                panel_step(arrays, pb, device, lu, mode)
+
+
+def solve_step(F, x, pb, device, lu: bool, forward: bool) -> None:
+    """One panel bucket's level solve, in place on x, by the bucket's
+    kind."""
+    if isinstance(pb, PanelBucketC):
+        fn = blocks.solve_fwd_level_c if forward else blocks.solve_bwd_level_c
+        fn(F, x, *pb.to(device), cp=pb.cp, rbp=pb.rbp, lu=lu)
+    else:
+        fn = blocks.solve_fwd_level if forward else blocks.solve_bwd_level
+        fn(F, x, *pb.to(device), lu=lu)
 
 
 def _device(device) -> torch.device:
@@ -140,35 +209,15 @@ class MegaRunner:
 
     def _once(self, vals, vals_u=None, mode: str | None = None):
         """One eager factorization from permuted lower(-and-upper^T) entry
-        values: the assembly into fresh storage, then per level its UT
-        update buckets and its PC panel buckets, in place. ``mode`` is the
-        panel-kernel mode (``route.panel_mode()`` when None)."""
+        values: the assembly into fresh storage, then the level walk, in
+        place. ``mode`` is the panel-kernel mode (``route.panel_mode()``
+        when None)."""
         mode = route.panel_mode() if mode is None else mode
-        plan, dev, lu = self.plan, self.device, self.lu
-        arrays = [blocks.assemble(a, v, plan.storage)
+        arrays = [blocks.assemble(a, v, self.plan.storage)
                   for a, v in zip(self._asm, (vals, vals_u))]
-        update = blocks.apply_updates_lu_t if lu \
-            else blocks.apply_updates_sym_t
-        panel = blocks.factor_panels_lu_u if lu \
-            else blocks.factor_panels_chol_u
-        upd_ctx = update_precision(self.config)
-        with matmul_precision(self.config.matmul_precision):
-            for lp in plan.levels:
-                # left-looking: drain this level's pending updates, then
-                # factor its panels
-                with upd_ctx():
-                    for ub in lp.updates:
-                        (kw, mrows, rstart, src_start, head_start, _, rows,
-                         tgt_cpos) = ub.to(dev)
-                        update(*arrays, kw, mrows, rstart, src_start,
-                               head_start, int(ub.slab_lo[0]), rows,
-                               tgt_cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp,
-                               srows=ub.slab_rows)
-                for pb in lp.panels:
-                    widths, nbelow, _ = pb.to_u(dev)
-                    panel(*arrays, widths, nbelow, int(pb.slab_lo[0]),
-                          cp=pb.cp, rbp=pb.rbp, mode=mode)
-        return tuple(arrays) if lu else arrays[0]
+        walk_levels(arrays, self.plan.levels, self.lu, self.config,
+                    self.device, mode)
+        return tuple(arrays) if self.lu else arrays[0]
 
     def trace_fn(self):
         """The eager whole-factorization callable (vals[, vals_u]) ->
@@ -227,9 +276,9 @@ class MegaRunner:
 
 
 class MegaSolver:
-    """Forward and backward level-batched triangular solves over the PC
-    buckets of a contig plan, on ``device`` (the CUDA device unless
-    given). The bucket tables are uploaded at the first solve."""
+    """Forward and backward level-batched triangular solves over the panel
+    buckets of a plan (PC or rowwin P), on ``device`` (the CUDA device
+    unless given). The bucket tables are uploaded at the first solve."""
 
     def __init__(self, plan, lu: bool = False, config: Config = DEFAULT,
                  device=None):
@@ -238,24 +287,21 @@ class MegaSolver:
         self.config = config
         self.device = _device(device)
 
-    def _steps(self):
-        return [(pb.to(self.device), pb.cp, pb.rbp)
-                for lp in self.plan.levels for pb in lp.panels]
+    def _panels(self):
+        return [pb for lp in self.plan.levels for pb in lp.panels]
 
     def forward(self, F, x):
         """x <- L^{-1} x over the levels in order, in place (L unit for
         LU)."""
-        for tabs, cp, rbp in self._steps():
-            blocks.solve_fwd_level_c(F, x, *tabs, cp=cp, rbp=rbp,
-                                     lu=self.lu)
+        for pb in self._panels():
+            solve_step(F, x, pb, self.device, self.lu, forward=True)
         return x
 
     def backward(self, F, x):
         """x <- L^{-T} x (LU: U^{-1} x, with F = U^T) over the levels in
         reverse, in place."""
-        for tabs, cp, rbp in reversed(self._steps()):
-            blocks.solve_bwd_level_c(F, x, *tabs, cp=cp, rbp=rbp,
-                                     lu=self.lu)
+        for pb in reversed(self._panels()):
+            solve_step(F, x, pb, self.device, self.lu, forward=False)
         return x
 
     def _eager(self, F, G, x):

@@ -5,12 +5,14 @@ A + A^T, so L and U^T share one supernode structure and one panel layout:
 the flat tensor ``Lx`` holds L (unit diagonal), ``Ux`` holds U^T (U's
 diagonal on its diagonal), slot for slot. The device scatters the permuted
 L-lower and U^T strict-lower values into the two tensors and walks the
-plan's levels in place, as the Cholesky executor does: each level's UT
-update buckets (``blocks.apply_updates_lu_t``), then its PC panel buckets
-(``blocks.factor_panels_lu_u``, routed by ``SPFX_PANEL_KERNEL`` as for
-Cholesky), through ``kernels.mega.MegaRunner`` (one CUDA-graph replay per
-factorization on the card with ``engine="mega"``, the eager walk with
-``"calls"``). The solve runs the native f64 supernodal solve on the
+plan's levels in place, as the Cholesky executor does: each level's
+update buckets (UT, ``blocks.apply_updates_lu_t``; UC or rowwin U under
+the other configs), then its panel buckets (PC,
+``blocks.factor_panels_lu_u``; rowwin P; routed by ``SPFX_PANEL_KERNEL``
+as for Cholesky), through ``kernels.mega.MegaRunner`` (one CUDA-graph
+replay per factorization on the card with ``engine="mega"``, the eager
+walk with ``"calls"``) or ``kernels.fused.FusedRunner``
+(``engine="fused"``). The solve runs the native f64 supernodal solve on the
 copied-back factors or the device's level solves (``solve_backend``, as
 for Cholesky), with f64 iterative refinement against the user's matrix on
 the host.
@@ -32,9 +34,8 @@ import scipy.sparse as sp
 import torch
 
 from spfx_torch.chol.factorize import (
-    _DTYPES, check_config, check_windows, device_solve, refined_solve,
-    resolve_device, use_host_solve)
-from spfx_torch.kernels.mega import MegaRunner, MegaSolver
+    _DTYPES, check_config, check_windows, device_solve, engine_of,
+    make_engine, refined_solve, resolve_device, use_host_solve)
 from spfx_torch.plan.schedule import FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
@@ -183,16 +184,13 @@ class LU:
         t0 = time.perf_counter()
         vals_l, vals_u = self.entry_values(A)
         if self._runner is None:
-            self._runner = MegaRunner(self.plan, lu=True, config=self.config,
-                                      device=self.device)
-            self._solver = MegaSolver(self.plan, lu=True, config=self.config,
-                                      device=self.device)
+            self._runner, self._solver = make_engine(self, lu=True)
         with profile_scope(self.config, "factorize"):
-            if self.config.engine == "mega":
-                # one graph replay on the card
-                Lx, Ux = self._runner.run(vals_l, vals_u)
-            else:
+            if engine_of(self.config) == "calls":
                 Lx, Ux = self._runner.trace_fn()(vals_l, vals_u)
+            else:
+                # graph replays on the card
+                Lx, Ux = self._runner.run(vals_l, vals_u)
         f = LUFactor(A, self.sym, self.plan, Lx, Ux, self.config,
                      solver=self._solver, row_perm=self.row_perm)
         return finish_factorize(self, f, t0)

@@ -105,11 +105,20 @@ class PanelBucket:
     xrows: np.ndarray          # (B, Rbp) int32 global below rows (solve), -1
     flops: float
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
+    _dev_f: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def to(self, device):
         return _to_device(self._dev, device, (
             self.widths, self.diag_row_start, self.below_row_start,
             self.xcols, self.xrows))
+
+    def to_f(self, device):
+        """(widths, nbelow, diag_row_start, below_row_start) on ``device``:
+        the factorization step's inputs, with each task's live below-row
+        count (its live below rows lead)."""
+        nbelow = (self.below_row_start >= 0).sum(axis=1).astype(np.int32)
+        return _to_device(self._dev_f, device, (
+            self.widths, nbelow, self.diag_row_start, self.below_row_start))
 
 
 @dataclasses.dataclass

@@ -16,6 +16,10 @@ from spfx.kernels import pallas_blocks
 
 from spfx_torch.bench import panels
 from spfx_torch.kernels import chol_small, syrk_gemm
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}

@@ -15,6 +15,10 @@ from spfx import checkpoint as jcheckpoint
 import spfx_torch
 from spfx_torch import checkpoint
 from spfx_torch.io import generate
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 F64 = dict(dtype="float64", ordering="nd")
 # refine=0 solves of one factor's values: Cholesky 1e-13, LU 1e-12 (as in

@@ -20,6 +20,10 @@ import spfx_torch
 from spfx_torch import Config
 from spfx_torch.interop import factor_from_numpy
 from spfx_torch.io import generate
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -124,11 +128,8 @@ def test_no_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(layout="rowwin"), "item 6"),
-    (dict(update_tile=0), "item 6"),
     (dict(dtype="complex128"), "item 6"),
     (dict(dtype="complex64"), "item 6"),
-    (dict(engine="fused"), "item 6"),
     (dict(matmul_precision="high"), "item 6"),
     (dict(update_precision="high"), "item 6"),
 ])

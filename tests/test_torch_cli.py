@@ -13,6 +13,10 @@ from spfx import checkpoint as jcheckpoint
 import spfx_torch
 import spfx_torch.__main__ as cli
 from spfx_torch.io import generate, matrix_market
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 
 def test_cli_driver(tmp_path, capsys):

@@ -22,6 +22,10 @@ from spfx_torch.kernels import extend_add
 from spfx_torch.plan.schedule import ALIGN, EA_G, build_plan
 from spfx_torch.symbolic.analyze import analyze
 from spfx_torch.utils.config import Config
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}

@@ -27,6 +27,10 @@ from spfx_torch.kernels import blocks, panel
 from spfx_torch.lu import pivot
 from spfx_torch.plan.schedule import build_plan
 from spfx_torch.symbolic.analyze import analyze
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
@@ -401,11 +405,8 @@ def test_lu_no_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(layout="rowwin"), "item 6"),
-    (dict(update_tile=0), "item 6"),
     (dict(dtype="complex128"), "item 6"),
     (dict(dtype="complex64"), "item 6"),
-    (dict(engine="fused"), "item 6"),
     (dict(matmul_precision="high"), "item 6"),
     (dict(update_precision="high"), "item 6"),
 ])

@@ -22,6 +22,10 @@ from spfx_torch.interop import factor_from_numpy, lu_factor_from_numpy
 from spfx_torch.io import generate
 from spfx_torch.kernels import blocks
 from spfx_torch.kernels.mega import MegaRunner, MegaSolver
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 DTYPES = ("float32", "float64")
 # relative to max|x|: f64 the two sides' sums in other orders; f32 the
@@ -220,11 +224,7 @@ def test_solver_forward_backward_is_solve():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(layout="rowwin"), "item 6"),
-    (dict(update_tile=0), "item 6"),
     (dict(dtype="complex64"), "item 6"),
-    (dict(engine="fused"), "item 6"),
-    (dict(fused=True), "item 6"),
     (dict(matmul_precision="high"), "item 6"),
 ])
 def test_unported_options_still_raise(kw, item):

@@ -19,6 +19,10 @@ import spfx_torch
 from spfx_torch import Config
 from spfx_torch.io import generate
 from spfx_torch.kernels import panel, panel_lanes, panel_wide, route
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}

@@ -20,6 +20,10 @@ from spfx_torch.io import generate
 from spfx_torch.plan.schedule import build_plan
 from spfx_torch.symbolic.analyze import analyze
 from spfx_torch.utils.config import Config, DEFAULT
+from test_torch_reference import ensure_reference_planner, one_torch_thread
+
+ensure_reference_planner()
+one_torch_thread()
 
 
 def _spd(n, seed=0):
