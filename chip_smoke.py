@@ -7,7 +7,7 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
-2. build: the CUDA kernels from spfx_torch/kernels/csrc (eight sources,
+2. build: the CUDA kernels from spfx_torch/kernels/csrc (ten sources,
    one nvcc each, started together), timed;
 3. kernels: every window_gather2 and potrf_inv call of the 48^3 f32
    Cholesky plan (the starts of its UT buckets, the 32x32 diagonal blocks
@@ -35,7 +35,10 @@ non-zero):
    every row on one slab row (integer values, exact) and every row dropped
    (slab untouched); times of kernel, plain version and the masked
    index_add_ at the largest call, its bound, and the whole path's calls
-   in one graph;
+   in one graph; then window_gather2, window_gather, extend_add_rows and
+   extend_add_rows2 at every UT step again on complex64 and complex128
+   flat arrays, against their plain versions (complex goes through the
+   same two kernels);
 3e. cholesky_small_batched at every c from 1 to 32 at batches 1, 3 and
    133, at (64, 8), c = 1, 7, 16 and (65,536, 32), f32 and f64, NaN, +Inf
    or 1e3 above the diagonal, against the plain version, with L L^T = D,
@@ -44,6 +47,19 @@ non-zero):
    for bit the aligned ones' factors; a negative pivot's NaN where the
    plain version has them; times against torch.linalg.cholesky_ex at
    (65,536, 32);
+3f. potrf_inv_c and getrf_inv_c (csrc/diag_block_c.cu) at every
+   diagonal-block call of the complex64 48^3 plans (the magnetic
+   Laplacian, ``magnetic_laplacian``, and its unsymmetric variant, on the
+   48^3 analysis), complex64 and complex128, against the plain versions,
+   with L L^H = D and L U = D and the inverses checked; seeded blocks of
+   widths 0, 1, 7, 8, 9, 31 and 32 in one call and a block scaled by
+   2^40, held row by row and column by column; times of kernel, plain
+   version and library calls at the largest call, and their bounds;
+3g. bmm_bf16x3 (csrc/bmm_bf16x3.cu) at the product shape of every UT step
+   of the 48^3 f32 plans against bmm_bf16x3_plain (tolerance from k), the
+   plain version against float64 within the bf16x3 error model and below
+   one bf16 pass's error; times against torch.bmm at full float32 and at
+   TF32, and its bound;
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
    default Config, whose engine "mega" captures the walk into a CUDA
    graph at the first factorization (an eager warm-up first) and replays
@@ -71,16 +87,27 @@ non-zero):
    a graph per mode, the capture's launches against the route-aware
    prediction (every PC step one launch of the route's kernel), the graph
    against the eager walk;
-4d. the non-default bucket kinds and engines, Cholesky and LU at 48^3 f32
-   on the 48^3 analysis: Config(update_tile=0) (UC buckets) and
-   Config(layout="rowwin") with the mega engine, and
+4d. the non-default bucket kinds and engines, Cholesky and LU in f32:
+   Config(update_tile=0) (UC buckets) and Config(layout="rowwin") with the
+   mega engine at 48^3 on the 48^3 analysis, and
    Config(layout="rowwin", engine="fused") (one graph per chunk of
-   levels): the same checks as phase 4 (the capture's launches against
-   the plan's prediction by bucket kind: one extend_add_rows per UC step,
-   no window_gather2; the graph factor against the eager walk; the
-   refined residual), one replay between CUDA events, for the mega
+   levels) at 32^3: the same checks as phase 4 (the capture's launches
+   against the plan's prediction by bucket kind: one extend_add_rows per
+   UC step, no window_gather2; the graph factor against the eager walk;
+   the refined residual), one replay between CUDA events, for the mega
    engine the graph report, and for rowwin with the mega engine the
    device solve report;
+4e. complex64 at 48^3 with the default Config but the dtype: a Cholesky of
+   the magnetic Laplacian and an LU of its unsymmetric variant, the
+   checks of phase 4 (the capture's launches against the complex plan's
+   prediction, potrf_inv_c / getrf_inv_c in place of the real kernels;
+   the graph against the eager walk within 1e-5; the refined residual
+   through the device solve, complex right-hand side) and the graph
+   report;
+4f. update_precision="high" at 48^3 f32, both kinds: the capture's
+   bmm_bf16x3 launches (one per UT step, LU's two), the graph against the
+   eager walk, the factor within 1e-3 of the default precision's (phase
+   4), the refined residual, and the steady wall beside the default's;
 5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12,
    with the device solve report;
 5b. f64 LU at 32^3 with unsymmetric values (every entry above the diagonal
@@ -88,13 +115,20 @@ non-zero):
    <= 1e-12, with the device solve report;
 5c. the 32^3 f64 Cholesky under lanes and the unsymmetric 32^3 f64 LU
    under wide, residual <= 1e-12 without refinement;
+5d. complex128 at 32^3, both kinds (magnetic Laplacian, its unsymmetric
+   variant): residual <= 1e-12, with the device solve report;
 6. card against CPU: laplacian_3d(12) in f64, flat factors within 1e-10;
 6b. the same for LU, on the unsymmetric 12^3 matrix, both flat factors;
 6c. the same for both kinds under SPFX_PANEL_KERNEL=lanes, wide and mixed;
 6f. the same for both kinds under the three configs of phase 4d;
+6g. the same in complex128 on the magnetic Laplacians under the default
+   config and phase 4d's three (within 1e-10), and matmul_precision="high"
+   in f32 (within 1e-4: both sides bf16x3, summed in other orders);
 6e. the surfaces at 12^3: the CLI (both kinds, factors saved), the saved
    factors loaded onto the card and solved (host and device solve), and
-   the profile scope's trace;
+   the profile scope's trace; the CLI on complex .mtx files (complex64,
+   both kinds) and their complex checkpoints loaded onto the card and
+   solved;
 6d. syrk_gemm_batched against its plain version at seeded shapes that
    reach both of its paths, f32 and f64; then the panel bench,
    spfx_torch.bench.panels.main() at its full size (2^16
@@ -102,7 +136,7 @@ non-zero):
    the custom kernel's S and G against the einsum strategy, and the times
    of syrk_gemm_batched, its plain version and a torch.bmm pair, with its
    bound;
-7. the ``kernels`` JSON line (eleven kernels), the nvidia-smi line, then
+7. the ``kernels`` JSON line (fourteen kernels), the nvidia-smi line, then
    the final ``ok`` JSON line.
 
 ``--profile`` adds a torch.profiler pass over one 48^3 factorization (a
@@ -706,19 +740,26 @@ def panel_rows(calls, dtype: str, lu: bool):
     return rows
 
 
-def check_getrf(calls, dtype: str):
+def check_getrf(calls, dtype: str, local: bool = False):
     """Every getrf_inv call against the plain version, plus the
     reconstructions L U = D, L^{-1} L = I and U U^{-1} = I on the live part
     (padding put back as identity). Tolerance: f32 1e-4, f64 1e-12,
     relative to the largest entry of the outputs; the two sides take the
     same recurrences with sums in other orders (and the card fuses
     multiply-adds). The reconstructions: f32 1e-5, f64 1e-12, relative to
-    the product of the factors' largest entries."""
+    the product of the factors' largest entries. complex64 and complex128
+    (getrf_inv_c) take the tolerances of f32 and f64. With ``local``
+    (blocks whose rows or columns differ in scale), each row of L and U and
+    each column of L^{-1} and U^{-1} is held against the largest plain
+    entry of that row or column, and each entry of the reconstructions
+    against the same entry of |L| |U|, |L^{-1}| |L| and |U| |U^{-1}|."""
     import torch
     from spfx_torch.kernels import panel
     td = getattr(torch, dtype)
-    tol = 1e-4 if dtype == "float32" else 1e-12
-    rtol = 1e-5 if dtype == "float32" else 1e-12
+    single = dtype in ("float32", "complex64")
+    tol = 1e-4 if single else 1e-12
+    rtol = 1e-5 if single else 1e-12
+    hi = torch.complex128 if td.is_complex else torch.float64
     worst = 0.0
     for wrel, D in calls:
         D = D.to(td)
@@ -726,20 +767,32 @@ def check_getrf(calls, dtype: str):
         refs = panel.getrf_inv_plain(wrel, D)
         err = max(max_diff(o, r) for o, r in zip(outs, refs))
         scale = max(max(float(r.abs().max()) for r in refs), 1.0)
-        if not err <= tol * scale:
-            fail(f"getrf_inv {dtype}: {err:.3e} from its plain version")
+        if local:
+            ok = all(bool(((o - r).abs() <= tol * r.abs().amax(
+                dim, keepdim=True)).all())
+                for o, r, dim in zip(outs, refs, (2, 2, 1, 1)))
+        else:
+            ok = err <= tol * scale
+        if not ok:
+            fail(f"getrf_inv {dtype}: {err:.3e} from its plain version"
+                 + (" (by row of L and U, column of the inverses)"
+                    if local else ""))
         worst = max(worst, err)
-        L, U, Li, Ui = (o.double() for o in outs)
-        Dm, cm = panel.masked_full_block(wrel, D.double())
+        L, U, Li, Ui = (o.to(hi) for o in outs)
+        Dm, cm = panel.masked_full_block(wrel, D.to(hi))
         live = (cm[:, :, None] & cm[:, None, :]).double()
         pad = torch.diag_embed((~cm).double())
         eye = torch.eye(D.shape[1], dtype=torch.float64, device=D.device)
         mx = lambda t: float(t.abs().max())
-        for what, res, bnd in (
-                ("L U = D", (L @ U - Dm) * live, mx(L) * mx(U)),
-                ("Linv L = I", Li @ (L + pad) - eye, mx(Li) * mx(L + pad)),
-                ("U Uinv = I", (U + pad) @ Ui - eye, mx(U + pad) * mx(Ui))):
-            if not mx(res) <= rtol * max(bnd, 1.0):
+        for what, res, a, b in (
+                ("L U = D", (L @ U - Dm) * live, L, U),
+                ("Linv L = I", Li @ (L + pad) - eye, Li, L + pad),
+                ("U Uinv = I", (U + pad) @ Ui - eye, U + pad, Ui)):
+            if local:
+                ok = bool((res.abs() <= rtol * (a.abs() @ b.abs())).all())
+            else:
+                ok = mx(res) <= rtol * max(mx(a) * mx(b), 1.0)
+            if not ok:
                 fail(f"getrf_inv {dtype}: {what} off by {mx(res):.3e}")
     torch.cuda.synchronize()
     return worst
@@ -794,17 +847,21 @@ def check_potrf(calls, dtype: str, local: bool = False):
     """Every potrf_inv call against the plain version, plus the
     reconstructions L L^T = D and L^{-1} L = I on the live part.
     Tolerance: f32 1e-4, f64 1e-12, relative to the largest entry; the two
-    sides take the same recurrence with sums in other orders. With
-    ``local`` (blocks whose rows differ in scale by orders of magnitude),
-    the same tolerances hold each row of L and each column of L^{-1}
-    against the largest plain entry of that row or column, and each entry
-    of the reconstructions against the same entry of |L| |L|^T and
+    sides take the same recurrence with sums in other orders. complex64
+    and complex128 (potrf_inv_c: L L^H = D, D Hermitian from its lower
+    triangle) take the tolerances of f32 and f64. With ``local`` (blocks
+    whose rows differ in scale by orders of magnitude), the same
+    tolerances hold each row of L and each column of L^{-1} against the
+    largest plain entry of that row or column, and each entry of the
+    reconstructions against the same entry of |L| |L|^T and
     |L^{-1}| |L|."""
     import torch
     from spfx_torch.kernels import panel
     td = getattr(torch, dtype)
-    tol = 1e-4 if dtype == "float32" else 1e-12
-    rtol = 1e-5 if dtype == "float32" else 1e-12
+    single = dtype in ("float32", "complex64")
+    tol = 1e-4 if single else 1e-12
+    rtol = 1e-5 if single else 1e-12
+    hi = torch.complex128 if td.is_complex else torch.float64
     worst = 0.0
     for wrel, D in calls:
         D = D.to(td)
@@ -823,11 +880,11 @@ def check_potrf(calls, dtype: str, local: bool = False):
                  + (" (by row of L, column of L^-1)" if local else ""))
         worst = max(worst, err)
         Dm, cm = panel.masked_block(wrel, D)
-        Dm = (Dm + Dm.tril(-1).transpose(1, 2)).double()
+        Dm = (Dm + Dm.tril(-1).mH).to(hi)
         live = (cm[:, :, None] & cm[:, None, :]).double()
         pad = torch.diag_embed((~cm).double())
-        Ld, Lid = L.double(), Li.double()
-        rec = (Ld @ Ld.transpose(1, 2) - Dm) * live
+        Ld, Lid = L.to(hi), Li.to(hi)
+        rec = (Ld @ Ld.mH - Dm) * live
         inv = Lid @ (Ld + pad) - torch.eye(
             D.shape[1], dtype=torch.float64, device=D.device)
         if local:
@@ -931,20 +988,21 @@ def extend_call(slabs, rows, es) -> None:
         extend_add.extend_add_rows2(slabs[0], slabs[1], rows, es[0], es[1])
 
 
-def check_extend_add(L, calls, dtype: str, gen, U=None):
+def check_extend_add(L, calls, dtype: str, gen, U=None, edges: bool = True):
     """Every call of extend_add_rows (given ``U``, a second flat array of
     L's size: of extend_add_rows2 on the step's slab views of L and U)
     against the plain version on each slab, E seeded in the step's shape,
     the kernel in place on the step's slab views. Tolerance: f32 1e-6, f64
     1e-14 of the slab's largest entry (repeated rows summed in another
-    order: atomics on the card). Then the adversarial calls of
-    ``check_extend_edges`` at the largest step's shape. Returns the
-    largest |kernel - plain|."""
+    order: atomics on the card); complex64 and complex128 (the real views
+    of their rows) those of f32 and f64. Then, with ``edges``, the
+    adversarial calls of ``check_extend_edges`` at the largest step's
+    shape. Returns the largest |kernel - plain|."""
     import torch
     from spfx_torch.kernels import extend_add
     arrays = [L] if U is None else [L, U]
     what = "extend_add_rows" if U is None else "extend_add_rows2"
-    tol = 1e-6 if dtype == "float32" else 1e-14
+    tol = 1e-6 if dtype in ("float32", "complex64") else 1e-14
     worst = 0.0
     for lo, srows, csp, rows in calls:
         ss = [x[lo:lo + srows * csp].view(srows, csp) for x in arrays]
@@ -960,6 +1018,9 @@ def check_extend_add(L, calls, dtype: str, gen, U=None):
                      f"{rows.shape[0]} rows): {err:.3e} from the plain "
                      "version")
             worst = max(worst, err)
+    if not edges:
+        torch.cuda.synchronize()
+        return worst
     lo, srows, csp, rows = max(calls, key=lambda c: c[3].shape[0] * c[2])
     check_extend_edges([x[lo:lo + srows * csp].view(srows, csp)
                         for x in arrays], rows, dtype, gen)
@@ -1246,6 +1307,195 @@ def chol_small_row(dev, gen):
 
 
 # --------------------------------------------------------------------------
+# phase 3f: potrf_inv_c and getrf_inv_c
+# --------------------------------------------------------------------------
+
+def edge_diag_c_calls(dev, lu: bool):
+    """Seeded complex128 calls at nb = 32 (a generator of their own, so
+    that the other checks' draws stay as they were): blocks of widths 0, 1,
+    7, 8, 9, 31 and 32 in one call, and one block scaled by 2^40. Cholesky:
+    X X^H + 32 I with 1e3 (1 + i) above the diagonal; LU: diagonally
+    dominant blocks with both triangles filled."""
+    import torch
+    own = torch.Generator(device=dev)
+    own.manual_seed(40 + lu)
+    c128 = dict(device=dev, dtype=torch.complex128)
+    X = torch.randn(8, 32, 32, generator=own, **c128)
+    if lu:
+        D = X + torch.diag_embed(X.abs().sum(2) + 1.0)
+    else:
+        D = X @ X.mH + 32 * torch.eye(32, **c128)
+        D = D + torch.triu(torch.full((32, 32), 1e3 + 1e3j, **c128), 1)
+    w = torch.tensor([0, 1, 7, 8, 9, 31, 32], device=dev, dtype=torch.int32)
+    return [(w, D[:7].contiguous()),
+            (w[-1:].contiguous(), (D[7:] * 2.0 ** 40).contiguous())]
+
+
+def diag_c_rows(pcalls, lcalls):
+    """Times (kernel, plain, library) and bounds of potrf_inv_c and
+    getrf_inv_c at the complex64 48^3 plans' largest calls (by batch), and
+    over all of each path's calls in one graph. The library calls are
+    cholesky_ex + solve_triangular and lu_factor_ex(pivot=False) + two
+    solve_triangular, timed eagerly (their complex batched paths are not
+    captured). Bounds: the bytes of potrf_work / getrf_work at 8 bytes a
+    value over the memory rate, or 4x their real operations (a complex
+    multiply-add is four real ones) over the f32 peak."""
+    import torch
+    from spfx_torch.kernels import panel
+    rows = {}
+    for name, calls, fn, plain, work, masked in (
+            ("potrf_inv_c", pcalls, panel.potrf_inv, panel.potrf_inv_plain,
+             potrf_work, panel.masked_block),
+            ("getrf_inv_c", lcalls, panel.getrf_inv, panel.getrf_inv_plain,
+             getrf_work, panel.masked_full_block)):
+        wrel, D = max(calls, key=lambda c: c[0].shape[0])
+        B, nb = D.shape[0], D.shape[1]
+        nbytes, ops = work(wrel, nb, D.element_size())
+        bms, by = bound(nbytes, 4 * ops, "float32")
+        Dm, _ = masked(wrel, D)
+        eye = torch.eye(nb, dtype=D.dtype, device=D.device).expand(B, nb, nb)
+        if name == "potrf_inv_c":
+            def library():
+                Lc, _ = torch.linalg.cholesky_ex(Dm)
+                return torch.linalg.solve_triangular(Lc, eye, upper=False)
+        else:
+            def library():
+                LU, _, _ = torch.linalg.lu_factor_ex(Dm, pivot=False)
+                return (torch.linalg.solve_triangular(
+                            LU, eye, upper=False, unitriangular=True),
+                        torch.linalg.solve_triangular(LU, eye, upper=True))
+
+        def path():
+            for w, d in calls:
+                fn(w, d)
+
+        pw = [work(w, d.shape[1], d.element_size()) for w, d in calls]
+        rows[name] = dict(
+            shape=f"B={B} nb={nb} complex64",
+            ms=time_ms(lambda: fn(wrel, D)),
+            plain_ms=time_ms(lambda: plain(wrel, D), reps=2),
+            library_ms=time_ms(library, graph=False),
+            bound_ms=bms, bound_by=by,
+            path_ms=time_ms(path, reps=1, rounds=3),
+            path_bound_ms=bound(sum(b for b, _ in pw),
+                                4 * sum(o for _, o in pw), "float32")[0])
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3g: bmm_bf16x3 at the UT products
+# --------------------------------------------------------------------------
+
+BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core rate, data sheet
+
+
+def ut_product_shapes(plan):
+    """(batch, m, k, n) of the product C = G H^T of every UT step: G the
+    (mp + ALIGN/kp)-row source superwindows, H the head windows."""
+    from spfx_torch.plan.schedule import ALIGN
+    return [(len(ub.kw), ub.mp + ALIGN // ub.kp, ub.kp, ub.tgt_cpos.shape[1])
+            for lp in plan.levels for ub in lp.updates
+            if getattr(ub, "head_start", None) is not None]
+
+
+def bmm_operands(shape, gen, dev):
+    """Seeded float32 operands of one UT product: G (batch, m, k) and the
+    transposed view H^T (batch, k, n) that the step passes, values spread
+    over 2^20 in scale by row."""
+    import torch
+    batch, m, k, n = shape
+    G = torch.randn(batch, m, k, generator=gen, device=dev)
+    G = G * torch.exp2(torch.randint(-10, 10, (batch, m, 1), generator=gen,
+                                     device=dev).float())
+    H = torch.randn(batch, n, k, generator=gen, device=dev)
+    return G, H.transpose(1, 2)
+
+
+def check_bf16x3(shapes, gen, dev):
+    """bmm_bf16x3 at every UT product shape against bmm_bf16x3_plain: both
+    split alike and multiply bf16 values exactly, so they differ only in
+    the order of the float32 sums of 3k terms: each entry within
+    3 k 2^-22 of its sum |a||b| (the two orders' rounding, 2^-23 a term
+    each with a margin for the tensor cores' accumulation). The plain
+    version against the float64 product: within (3 x 2^-16 + k 2^-22) of
+    sum |a||b| (the bf16x3 error model: the split's and the dropped lo.lo
+    term's 2^-16 each, and three float32 sums of k terms at 2^-24 a term),
+    and its largest error below one
+    bf16 pass's on the same inputs. Returns the largest |kernel - plain|
+    and the largest plain and single-pass errors relative to sum |a||b|."""
+    import torch
+    from spfx_torch.kernels import matmul
+    worst = rel3 = rel1 = 0.0
+    for shape in shapes:
+        G, Ht = bmm_operands(shape, gen, dev)
+        k = shape[2]
+        got = matmul.bmm_bf16x3(G, Ht)
+        ref = matmul.bmm_bf16x3_plain(G, Ht)
+        S = torch.bmm(G.abs().double(), Ht.abs().double())
+        d = (got - ref).abs().double()
+        if not bool((d <= 3 * k * 2.0 ** -22 * S).all()):
+            fail(f"bmm_bf16x3 at {shape}: {float(d.max()):.3e} from its "
+                 "plain version")
+        worst = max(worst, float(d.max()))
+        exact = torch.bmm(G.double(), Ht.double())
+        e3 = (ref.double() - exact).abs()
+        if not bool((e3 <= (3 * 2.0 ** -16 + k * 2.0 ** -22) * S).all()):
+            fail(f"bmm_bf16x3_plain at {shape}: outside the bf16x3 model")
+        one = torch.bmm(G.bfloat16().double(), Ht.bfloat16().double())
+        e1 = (one - exact).abs()
+        if not float(e3.max()) < float(e1.max()):
+            fail(f"bmm_bf16x3_plain at {shape}: {float(e3.max()):.3e} not "
+                 f"below one bf16 pass's {float(e1.max()):.3e}")
+        Sm = S.clamp(min=1e-300)
+        rel3 = max(rel3, float((e3 / Sm).max()))
+        rel1 = max(rel1, float((e1 / Sm).max()))
+    torch.cuda.synchronize()
+    return worst, rel3, rel1
+
+
+def bmm_bf16x3_row(shapes, gen, dev):
+    """Times of bmm_bf16x3, its plain version and torch.bmm at full float32
+    (the library call) and at TF32, at the largest UT product by
+    operations; the bound is the larger of 3 x 2 m n k batch operations
+    over the bf16 tensor-core peak and the operands and product's bytes
+    over the memory rate; and all of the path's products in one graph."""
+    import torch
+    from spfx_torch.kernels import matmul, mega
+    shape = max(shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
+    batch, m, k, n = shape
+    G, Ht = bmm_operands(shape, gen, dev)
+
+    def tf32():
+        with mega.matmul_precision("default"):
+            return torch.bmm(G, Ht)
+
+    ops = 3 * 2.0 * batch * m * n * k
+    nbytes = 4.0 * batch * (m * k + k * n + m * n)
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_PEAK * 1e3
+    ops_all = sum(3 * 2.0 * b * mm * nn * kk for b, mm, kk, nn in shapes)
+    bytes_all = sum(4.0 * b * (mm * kk + kk * nn + mm * nn)
+                    for b, mm, kk, nn in shapes)
+    pins = [bmm_operands(s, gen, dev) for s in shapes]
+
+    def path():
+        for g, h in pins:
+            matmul.bmm_bf16x3(g, h)
+
+    row = dict(
+        shape=f"batch={batch} m={m} k={k} n={n}",
+        ms=time_ms(lambda: matmul.bmm_bf16x3(G, Ht)),
+        plain_ms=time_ms(lambda: matmul.bmm_bf16x3_plain(G, Ht)),
+        library_ms=time_ms(lambda: torch.bmm(G, Ht)),
+        library_tf32_ms=time_ms(tf32),
+        bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+        path_ms=time_ms(path, reps=1, rounds=3),
+        path_bound_ms=max(bytes_all / HBM_BYTES_PER_S,
+                          ops_all / BF16_PEAK) * 1e3)
+    del pins
+    return row
+
+
+# --------------------------------------------------------------------------
 # phase 6d: the panel bench
 # --------------------------------------------------------------------------
 
@@ -1359,19 +1609,31 @@ def predicted_launches(ctx) -> dict:
     """Launches of one factorization under the SPFX_PANEL_KERNEL mode set
     now, by bucket kind: a UT step one window_gather2 per factor array and
     one extend_add_rows (LU's twin takes both arrays); a UC step one
-    extend_add_rows; a rowwin U step none; a PC or rowwin P step either one
-    launch of its route's whole-panel kernel or, on the blocked route, one
-    diagonal-block kernel per 32 columns (getrf_inv for LU, potrf_inv for
-    Cholesky)."""
+    extend_add_rows; a rowwin U step none; with update_precision "high" in
+    float32, every update step one bmm_bf16x3 (LU: two, the crossed
+    products); a PC or rowwin P step either one launch of its route's
+    whole-panel kernel or, on the blocked route (a complex plan's only
+    route), one diagonal-block kernel per 32 columns (getrf_inv for LU,
+    potrf_inv for Cholesky; getrf_inv_c and potrf_inv_c when complex). A
+    config with matmul_precision "high" is not predicted."""
     from spfx_torch.kernels import _cuda, route
     from spfx_torch.plan.schedule import UpdateBucketC
     plan = ctx.plan
+    cfg = ctx.config
     lu = is_lu(ctx)
     mode = route.panel_mode()
-    item = 4 if ctx.config.dtype == "float32" else 8
+    cplx = "complex" in cfg.dtype
+    item = {"float32": 4, "float64": 8, "complex64": 8,
+            "complex128": 16}[cfg.dtype]
+    if cfg.matmul_precision == "high":
+        fail("predicted_launches: matmul_precision 'high' is not predicted")
+    high = cfg.dtype == "float32" and cfg.update_precision == "high"
+    diag = ("getrf_inv" if lu else "potrf_inv") + ("_c" if cplx else "")
     want = dict.fromkeys(_cuda.launch_counts(), 0)
     for lp in plan.levels:
         for ub in lp.updates:
+            if high:
+                want["bmm_bf16x3"] += 2 if lu else 1
             if isinstance(ub, UpdateBucketC):
                 want["extend_add_rows"] += 1
                 if ub.head_start is not None:
@@ -1379,9 +1641,9 @@ def predicted_launches(ctx) -> dict:
         for pb in lp.panels:
             cp, rbp = panel_shape(pb)
             r = route.route_panel(cp, rbp, len(pb.widths), item, lu,
-                                  mode=mode)
+                                  mode=mode, cplx=cplx)
             if r == "blocked":
-                want["getrf_inv" if lu else "potrf_inv"] += -(-cp // 32)
+                want[diag] += -(-cp // 32)
             else:
                 want[f"{'lu' if lu else 'chol'}_panel_{r}"] += 1
     return want
@@ -1497,7 +1759,7 @@ def main_path(ctx, A, label: str, repeats: int = 5,
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
     eager = eager if is_lu(ctx) else (eager,)
-    tol = 1e-5 if ctx.config.dtype == "float32" else 1e-12
+    tol = 1e-5 if ctx.config.dtype in ("float32", "complex64") else 1e-12
     graph_err = {}
     for name, g, e in zip(("Lx", "Ux") if is_lu(ctx) else ("L",),
                           factor_arrays(f), eager):
@@ -1507,7 +1769,7 @@ def main_path(ctx, A, label: str, repeats: int = 5,
             fail(f"{label}: the graph's {name} is {graph_err[name]:.3e} of "
                  f"its largest entry from the eager walk's (limit {tol:g})")
     del eager, vals
-    b = synth_rhs(A)
+    b = synth_rhs(A, cplx="complex" in ctx.config.dtype)
     t0 = time.perf_counter()
     x0 = f.solve(b, refine=0)
     x = f.solve(b)
@@ -1652,7 +1914,7 @@ def device_solve_report(ctx, A, f, label: str) -> dict:
     else:
         fd = CholeskyFactor(f.A, f.sym, f.plan, f.L, cfg,
                             solver=ctx._solver)
-    b = synth_rhs(A)
+    b = synth_rhs(A, cplx="complex" in f.config.dtype)
     times = {}
     for key, fn in (("device_solve_first_s", fd), ("device_solve_s", fd),
                     ("host_solve_s", f)):
@@ -1768,6 +2030,78 @@ def unsym_laplacian(k: int):
     return sp.csc_matrix(sp.tril(A) + up)
 
 
+def magnetic_laplacian(k: int, unsym: bool = False):
+    """laplacian_3d(k) with each off-diagonal pair -1 / -1 made
+    -e^{i theta} above the diagonal and -e^{-i theta} below it, theta from
+    U[0, 2 pi) (numpy default_rng(0)): a Hermitian matrix with the
+    Laplacian's diagonal, still diagonally dominant, so positive definite.
+    With ``unsym``, every entry above the diagonal then scaled by
+    ``unsym_laplacian``'s factors from U[0.25, 1] (a fresh default_rng(0)):
+    complex unsymmetric values on the symmetric pattern."""
+    import numpy as np
+    import scipy.sparse as sp
+    from spfx_torch.io import generate
+    A = generate.laplacian_3d(k)
+    up = sp.triu(A, 1).tocoo()
+    theta = np.random.default_rng(0).uniform(0.0, 2 * np.pi, up.nnz)
+    vals = up.data * np.exp(1j * theta)
+    U = sp.coo_matrix((vals, (up.row, up.col)), shape=A.shape)
+    low = U.conj().T
+    if unsym:
+        U = sp.coo_matrix((vals * np.random.default_rng(0).uniform(
+            0.25, 1.0, up.nnz), (up.row, up.col)), shape=A.shape)
+    return sp.csc_matrix(sp.diags(A.diagonal().astype(np.complex128))
+                         + U + low)
+
+
+def surfaces_complex(dev) -> None:
+    """The CLI on complex MatrixMarket files at GRID_CPU^3 under
+    chiprun_out/surfaces_c: the magnetic Laplacian (Hermitian, written as
+    one triangle, which the reader mirrors conjugated) through the
+    Cholesky engine and its unsymmetric variant through auto (LU), both in
+    complex64 with complex right-hand sides, each factor saved: rc 0 and
+    one residual line each; then both complex checkpoints loaded onto the
+    card and solved against a complex right-hand side, refined residual
+    <= 1e-12."""
+    import contextlib
+    import io
+    import shutil
+    import spfx_torch.__main__ as cli
+    from spfx_torch import checkpoint, scaled_residual, synth_rhs
+    from spfx_torch.io import matrix_market
+    d = os.path.join(ROOT, "chiprun_out", "surfaces_c")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    mats = {"herm.mtx": (magnetic_laplacian(GRID_CPU), ["--engine", "chol"]),
+            "cunsym.mtx": (magnetic_laplacian(GRID_CPU, unsym=True), [])}
+    text = ""
+    for name, (M, extra) in mats.items():
+        matrix_market.write_matrix(os.path.join(d, name), M,
+                                   symmetric=name == "herm.mtx")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([os.path.join(d, name), "--dtype", "complex64",
+                           "--save-factor", d] + extra)
+        text += out.getvalue()
+        if rc != 0:
+            fail(f"CLI on {name}: rc {rc}, output {out.getvalue()!r}")
+    log("[surfaces] complex " + " | ".join(text.strip().splitlines()))
+    if text.count("residual") != 2 or "engine=chol dtype=complex64" not in \
+            text or "engine=lu dtype=complex64" not in text:
+        fail(f"CLI on complex files: output {text!r}")
+    for name, (M, _) in mats.items():
+        f = checkpoint.load_factor(os.path.join(d, name + ".factor.npz"))
+        arrays = (f.Lx, f.Ux) if hasattr(f, "Ux") else (f.L,)
+        if any(t.device.type != "cuda" or not t.is_complex()
+               for t in arrays):
+            fail(f"load_factor placed {name}'s factor off the card or "
+                 "not complex")
+        b = synth_rhs(M, cplx=True)
+        res = scaled_residual(M, f.solve(b), b)
+        if not res <= 1e-12:
+            fail(f"loaded complex {name}: residual {res:.3e}")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -1843,6 +2177,11 @@ def main(argv) -> int:
         f"{lctx.plan_time:.2f} s " + json.dumps(plan_summary(lctx)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # the complex and "high" phases (3d's complex calls, 3f, 3g) draw from
+    # a generator of their own, so that the other phases' draws stay as
+    # they were
+    cgen = torch.Generator(device=dev)
+    cgen.manual_seed(14)
     pcalls = plan_potrf_calls(ctx, dev)
     lcalls = plan_getrf_calls(lctx, dev)
     errs = {}
@@ -1930,6 +2269,22 @@ def main(argv) -> int:
             log("[kernels] f32 timing extend_add_rows "
                 + json.dumps(rows["extend_add_rows"]))
         del L, Lx, Ux
+    # the same calls and window_gather2 / window_gather at every UT step, on
+    # complex flat arrays
+    for dtype in ("complex64", "complex128"):
+        t0 = time.perf_counter()
+        L, gcalls, gerr = check_gathers(ctx.plan, dtype, dev, cgen)
+        errs.update({(k, dtype): v for k, v in gerr.items()})
+        err = check_extend_add(L, ecalls, dtype, cgen, edges=False)
+        Lx, Ux = (torch.randn(lctx.plan.storage, generator=cgen, device=dev,
+                              dtype=L.dtype) for _ in range(2))
+        err2 = check_extend_add(Lx, lecalls, dtype, cgen, U=Ux, edges=False)
+        errs[("extend_add_rows", dtype)] = max(err, err2)
+        log(f"[kernels] {dtype}: {len(gcalls)} window_gather2 calls "
+            f"bit-identical, {len(ecalls)} extend_add_rows calls, max abs "
+            f"err {err:.3e}; {len(lecalls)} extend_add_rows2 calls, max abs "
+            f"err {err2:.3e} ({time.perf_counter() - t0:.1f} s)")
+        del L, Lx, Ux, gcalls
     del ecalls
     torch.cuda.empty_cache()
 
@@ -1952,49 +2307,153 @@ def main(argv) -> int:
 
     mark("3e")
 
+    # 3f. potrf_inv_c and getrf_inv_c at every diagonal-block call of the
+    # complex64 48^3 plans: the magnetic Laplacian (Cholesky) and its
+    # unsymmetric variant (LU), on the 48^3 analysis (the same pattern)
+    Am = magnetic_laplacian(GRID)
+    Amu = magnetic_laplacian(GRID, unsym=True)
+    cctx = spfx_torch.Cholesky(Am, Config(dtype="complex64"), sym=ctx.sym,
+                               device=dev)
+    clctx = spfx_torch.LU(Amu, Config(dtype="complex64"), sym=ctx.sym,
+                          device=dev)
+    t0 = time.perf_counter()
+    cpcalls = plan_potrf_calls(cctx, dev)
+    clcalls = plan_getrf_calls(clctx, dev)
+    for dtype in ("complex64", "complex128"):
+        errs[("potrf_inv_c", dtype)] = check_potrf(cpcalls, dtype)
+        errs[("getrf_inv_c", dtype)] = check_getrf(clcalls, dtype)
+        for lu, check in ((False, check_potrf), (True, check_getrf)):
+            for call in edge_diag_c_calls(dev, lu):
+                check([call], dtype, local=True)
+        log(f"[kernels] {dtype}: {len(cpcalls)} potrf_inv_c calls max abs "
+            f"err {errs[('potrf_inv_c', dtype)]:.3e}, {len(clcalls)} "
+            f"getrf_inv_c calls max abs err "
+            f"{errs[('getrf_inv_c', dtype)]:.3e}; both at widths 0, 1, 7, "
+            "8, 9, 31, 32 and scaled by 2^40, by row and column")
+    rows.update(diag_c_rows(cpcalls, clcalls))
+    log(f"[kernels] complex64 timing potrf_inv_c, getrf_inv_c "
+        + json.dumps({k: rows[k] for k in ("potrf_inv_c", "getrf_inv_c")})
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    del cpcalls, clcalls
+    torch.cuda.empty_cache()
+
+    mark("3f")
+
+    # 3g. bmm_bf16x3 at the product shape of every UT step of the 48^3 f32
+    # plans (LU's crossed products have the Cholesky step's shape)
+    t0 = time.perf_counter()
+    shapes = ut_product_shapes(ctx.plan)
+    if ut_product_shapes(lctx.plan) != shapes:
+        fail("the 48^3 LU plan's UT products differ from the Cholesky's")
+    berr, rel3, rel1 = check_bf16x3(shapes, cgen, dev)
+    errs[("bmm_bf16x3", "float32")] = berr
+    rows["bmm_bf16x3"] = bmm_bf16x3_row(shapes, cgen, dev)
+    log(f"[kernels] float32: {len(shapes)} bmm_bf16x3 calls, max abs err "
+        f"{berr:.3e} from the plain version; plain version's largest error "
+        f"{rel3:.3e} of sum |a||b| against one bf16 pass's {rel1:.3e}; "
+        f"timing " + json.dumps(rows["bmm_bf16x3"])
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    mark("3g")
+
     # 4. Cholesky main path, 48^3 f32 with the default Config; 4c. the same
     # under SPFX_PANEL_KERNEL=lanes, then wide
     paths = {}
     graph_paths = {}
     device_ms = {}
+    defaults = {}       # kind -> (the default factor's arrays, steady wall)
     for lu, c, kind in ((False, ctx, "cholesky"), (True, lctx, "lu")):
         for mode in (None, "lanes", "wide"):
             path = kind if mode is None else f"{kind}_{mode}"
             label = (("LU " if lu else "main ") + f"{GRID}^3 float32"
                      + ("" if mode is None else f" {mode}"))
             with panel_env(mode):
-                _, paths[path], graph_paths[path], _ = main_path(
+                fp, paths[path], graph_paths[path], rp = main_path(
                     c, A, label,
                     extras=("graph", "solve") if mode is None else ())
+                if mode is None:
+                    defaults[kind] = (factor_arrays(fp), rp["factorize_s"])
+                del fp
                 if "--profile" in argv:
                     device_ms[path] = profile_pass(
                         c, A, "chip_smoke_profile" + ("_lu" if lu else "")
                         + ("" if mode is None else f"_{mode}"))
     mark("4, 4b and 4c")
 
-    # 4d. UC buckets, the rowwin layout and the fused engine, both kinds,
-    # on the 48^3 analysis
+    # 4d. UC buckets and the rowwin layout, both kinds, on the 48^3
+    # analysis; the fused engine at 32^3 (its own analysis), cut from 48^3
+    # to keep the script's time as the phases of complex and "high" grew
+    A32f = generate.laplacian_3d(GRID_F64)
+    sym32 = None
     for lu in (False, True):
         for tag, kw in LAYOUT_CONFIGS:
             kind = spfx_torch.LU if lu else spfx_torch.Cholesky
-            lc = kind(A, Config(**kw), sym=ctx.sym, device=dev)
+            fused = tag == "rowwin_fused"
+            M, grid = (A32f, GRID_F64) if fused else (A, GRID)
+            lc = kind(M, Config(**kw), sym=sym32 if fused else ctx.sym,
+                      device=dev)
+            if fused:
+                sym32 = lc.sym
             path = f"{'lu' if lu else 'cholesky'}_{tag}"
-            label = f"{'LU' if lu else 'main'} {GRID}^3 float32 {tag}"
+            label = f"{'LU' if lu else 'main'} {grid}^3 float32 {tag}"
             log(f"[plan] {label}: plan {lc.plan_time:.2f} s "
                 + json.dumps(plan_summary(lc)))
             extras = {"uc": ("replay", "graph"),
                       "rowwin": ("replay", "graph", "solve")}.get(
                           tag, ("replay",))
             _, paths[path], graph_paths[path], _ = main_path(
-                lc, A, label, extras=extras)
+                lc, M, label, extras=extras)
             del lc
             torch.cuda.empty_cache()
-    del ctx, lctx, c
-    torch.cuda.empty_cache()
+    del A32f, sym32
     if device_ms:
         log("[profile] device ms by path " + json.dumps(device_ms))
 
     mark("4d")
+
+    # 4e. complex64 at 48^3 with the default Config but the dtype: the
+    # magnetic Laplacian (Cholesky) and its unsymmetric variant (LU)
+    for lu, c, M in ((False, cctx, Am), (True, clctx, Amu)):
+        path = "lu_c64" if lu else "cholesky_c64"
+        _, paths[path], graph_paths[path], _ = main_path(
+            c, M, f"{'LU' if lu else 'main'} {GRID}^3 complex64",
+            extras=("graph",))
+        torch.cuda.empty_cache()
+    del cctx, clctx, c, Am, Amu
+    torch.cuda.empty_cache()
+
+    mark("4e")
+
+    # 4f. update_precision="high" at 48^3 f32, both kinds, on the 48^3
+    # analysis: the capture's bmm_bf16x3 launches, the graph against the
+    # eager walk, and the factor's distance from the default precision's
+    # (phase 4) within 1e-3 of each array's largest entry: each bf16x3
+    # update product errs by up to about 3 x 2^-16 (4.6e-5) of sum |a||b|
+    # where full float32 errs by 2^-24 k, and the limit leaves a factor of
+    # 20 for the growth over the elimination
+    for lu, kind in ((False, "cholesky"), (True, "lu")):
+        hk = spfx_torch.LU if lu else spfx_torch.Cholesky
+        hc = hk(A, Config(update_precision="high"), sym=ctx.sym, device=dev)
+        label = f"{'LU' if lu else 'main'} {GRID}^3 float32 high"
+        fh, paths[f"{kind}_high"], graph_paths[f"{kind}_high"], rh = \
+            main_path(hc, A, label, extras=("replay",))
+        dist = {}
+        for name, h, d in zip(("Lx", "Ux") if lu else ("L",),
+                              factor_arrays(fh), defaults[kind][0]):
+            dist[name] = max_diff(h, d) / float(d.abs().max())
+            if not dist[name] <= 1e-3:
+                fail(f"{label}: {name} is {dist[name]:.3e} of its largest "
+                     "entry from the default precision's (limit 1e-3)")
+        log(f"[{label}] distance from the default precision's factor "
+            f"{json.dumps(dist)}; steady wall {rh['factorize_s']:.4f} s "
+            f"beside the default config's {defaults[kind][1]:.4f} s")
+        del hc, fh
+        torch.cuda.empty_cache()
+    del ctx, lctx, defaults
+    torch.cuda.empty_cache()
+
+    mark("4f")
 
     # 5. f64 at 32^3; 5c. the same under lanes, without refinement
     A32 = generate.laplacian_3d(GRID_F64)
@@ -2019,7 +2478,21 @@ def main(argv) -> int:
                   unrefined_limit=1e-12)
     del lctx64
 
-    mark("5, 5b and 5c")
+    # 5d. complex128 at 32^3, both kinds (the double-complex line), with
+    # the device solve report
+    Am32 = magnetic_laplacian(GRID_F64)
+    cctx128 = spfx_torch.Cholesky(Am32, Config(dtype="complex128"),
+                                  device=dev)
+    main_path(cctx128, Am32, f"complex128 {GRID_F64}^3", extras=("solve",))
+    Amu32 = magnetic_laplacian(GRID_F64, unsym=True)
+    clctx128 = spfx_torch.LU(Amu32, Config(dtype="complex128"),
+                             sym=cctx128.sym, device=dev)
+    main_path(clctx128, Amu32, f"LU complex128 {GRID_F64}^3",
+              extras=("solve",))
+    del cctx128, clctx128, Am32, Amu32
+    torch.cuda.empty_cache()
+
+    mark("5, 5b, 5c and 5d")
 
     # 6. the card against the CPU (plain versions), 12^3 f64, Cholesky and
     # (6b) LU with unsymmetric values, both flat factors; 6c. the same
@@ -2061,12 +2534,44 @@ def main(argv) -> int:
                     fail(f"card and CPU factors ({name} {tag}) differ by "
                          f"{rel:.3e}")
 
-    mark("6, 6b, 6c and 6f")
+    # 6g. the same in complex128 on the magnetic Laplacians, under the
+    # default config and the three of phase 4d; then matmul_precision="high"
+    # in f32 on the real matrices, within 1e-4 of each array's largest
+    # entry: both sides run bf16x3 products and float32 diagonal blocks,
+    # the card's kernels summing in other orders than the CPU's plain
+    # versions (phase 3's f32 kernel tolerance)
+    M12, M12u = (magnetic_laplacian(GRID_CPU),
+                 magnetic_laplacian(GRID_CPU, unsym=True))
+    for tag, kw, mats, tol in (
+            [("complex128", dict(dtype="complex128"), (M12, M12u), 1e-10)]
+            + [(f"complex128 {t}", dict(dtype="complex128", **k),
+                (M12, M12u), 1e-10) for t, k in LAYOUT_CONFIGS]
+            + [("f32 high", dict(dtype="float32", matmul_precision="high"),
+                (A12, A12u), 1e-4)]):
+        cfg = Config(**kw)
+        fgs = (spfx_torch.cholesky(mats[0], cfg, device=dev),
+               spfx_torch.lu(mats[1], cfg, device=dev))
+        fcs = (spfx_torch.cholesky(mats[0], cfg, device="cpu"),
+               spfx_torch.lu(mats[1], cfg, device="cpu"))
+        for fg, fc in zip(fgs, fcs):
+            for name, g, c in zip(("L",) if fg is fgs[0] else ("LU Lx",
+                                                              "LU Ux"),
+                                  factor_arrays(fg), factor_arrays(fc)):
+                rel = float((g.cpu() - c).abs().max() / c.abs().max())
+                log(f"[card vs cpu] {GRID_CPU}^3 {tag} {name} max rel diff "
+                    f"{rel:.3e}")
+                if not rel <= tol:
+                    fail(f"card and CPU factors ({name} {tag}) differ by "
+                         f"{rel:.3e} (limit {tol:g})")
+
+    mark("6, 6b, 6c, 6f and 6g")
 
     # 6e. the surfaces: CLI, checkpoints, profile scope
     t0 = time.perf_counter()
     surfaces(dev)
-    log(f"[surfaces] CLI, checkpoints and profile scope at {GRID_CPU}^3 "
+    surfaces_complex(dev)
+    log(f"[surfaces] CLI, checkpoints and profile scope at {GRID_CPU}^3, "
+        f"the CLI and checkpoints also complex "
         f"({time.perf_counter() - t0:.1f} s)")
 
     mark("6e")
@@ -2109,6 +2614,14 @@ def main(argv) -> int:
         "syrk_gemm_batched": (cu + "syrk_gemm.cu", pb + "200", "panels"),
         "cholesky_small_batched": (cu + "chol_small.cu", pb + "1195",
                                    "cholesky"),
+        # no Pallas kernel: the JAX package's complex panels take XLA's
+        # Cholesky and its no-pivot LU, its "high" products XLA's bf16x3
+        "potrf_inv_c": (cu + "diag_block_c.cu", "spfx/kernels/blocks.py:352",
+                        "cholesky_c64"),
+        "getrf_inv_c": (cu + "diag_block_c.cu", "spfx/kernels/blocks.py:842",
+                        "lu_c64"),
+        "bmm_bf16x3": (cu + "bmm_bf16x3.cu", "spfx/kernels/mega.py:383",
+                       "cholesky_high"),
     }
     kernels = []
     for name, (source, replaces, own) in info.items():
@@ -2118,7 +2631,8 @@ def main(argv) -> int:
             "replaces": replaces, "launches": paths[own][name],
             "launches_by_path": {p: l[name] for p, l in paths.items()},
             "graph_launches": graph_paths.get(own, {}).get(name),
-            "max_abs_err": errs[(name, "float32")], "ms": r["ms"],
+            "max_abs_err": errs[(name, "complex64" if name.endswith("_c")
+                                 else "float32")], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "path_ms": r.get("path_ms"),
@@ -2128,7 +2642,8 @@ def main(argv) -> int:
             "library_path_device_ms": r.get("library_path_device_ms"),
             "ms_b1": r.get("ms_b1"), "ms_b256": r.get("ms_b256"),
             "lu_path_ms": r.get("lu_path_ms"),
-            "lu_path_bound_ms": r.get("lu_path_bound_ms")})
+            "lu_path_bound_ms": r.get("lu_path_bound_ms"),
+            "library_tf32_ms": r.get("library_tf32_ms")})
     for k in kernels:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

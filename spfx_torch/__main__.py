@@ -10,6 +10,12 @@ The factorizations and solves run on the CUDA device unless ``--device``
 names another (``--device cpu`` takes every kernel's plain PyTorch
 version). While matrix k factorizes, a prefetch thread reads, analyzes and
 plans matrix k + 1: host work only.
+
+``--dtype complex64`` or ``complex128`` factorizes in that type (a complex
+MatrixMarket file, or a real one taken as complex) and solves against a
+complex right-hand side (``synth_rhs(A, cplx=True)``). A Hermitian matrix
+is not symmetric, so ``--engine auto`` sends it to LU; ``--engine chol``
+takes the Hermitian Cholesky.
 """
 
 from __future__ import annotations
@@ -73,13 +79,13 @@ def run_one(path: str, args, prep=None) -> int:
     try:
         f = ctx.factorize(A)
         arr = f.L if engine == "chol" else f.Lx
-        _ = float(arr[:1].cpu()[0])                 # force completion
+        _ = float(arr[:1].real.cpu()[0])            # force completion
     except Exception as e:
         print(f"  factorize FAILED: {e}", file=sys.stderr)
         return 1
     fact_t = time.perf_counter() - t0
 
-    b = synth_rhs(A)
+    b = synth_rhs(A, cplx="complex" in args.dtype)
     t0 = time.perf_counter()
     x = f.solve(b)
     solve_t = time.perf_counter() - t0

@@ -19,6 +19,9 @@ The solve runs the native f64 supernodal solve on the copied-back factor
 there), or the level-batched triangular solves on the device
 (``kernels.mega.MegaSolver``; ``"device"``, and ``"auto"`` without the
 native library), with f64 iterative refinement on the host either way.
+A complex factor (``Config(dtype="complex64"|"complex128")``: A = L L^H,
+Hermitian positive definite) always takes the device solve and refines
+in complex128, as the JAX package does.
 
 Everything runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``"cpu"``, where every kernel wrapper takes its plain
@@ -40,7 +43,8 @@ from spfx_torch.plan.schedule import (ALIGN, FactorPlan, PanelBucketC,
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "complex64": torch.complex64, "complex128": torch.complex128}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,12 +64,9 @@ def engine_of(config: Config) -> str:
 
 
 def check_config(config: Config) -> None:
-    """Raise on the options this port does not implement yet."""
+    """Raise on an option value the port does not know."""
     if config.layout not in ("contig", "rowwin"):
         raise ValueError(f"unknown layout {config.layout!r}")
-    if "complex" in config.dtype:
-        raise NotImplementedError(
-            "complex dtypes are not ported (ROADMAP Queue 1 item 6)")
     if config.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {config.dtype!r}")
     if config.solve_backend not in ("auto", "host", "device"):
@@ -73,10 +74,6 @@ def check_config(config: Config) -> None:
     if engine_of(config) not in ("mega", "calls", "fused"):
         raise ValueError(f"unknown engine {config.engine!r}")
     for p in (config.matmul_precision, config.update_precision):
-        if p == "high":
-            raise NotImplementedError(
-                "matmul precision 'high' (bf16x3) is not ported (ROADMAP "
-                "Queue 1 item 6)")
         if p is not None and p not in _PRECISION:
             raise ValueError(f"unknown matmul precision {p!r}")
 
@@ -158,9 +155,11 @@ def make_engine(ctx, lu: bool):
 def use_host_solve(config: Config) -> bool:
     """Whether a factor solves on the host: ``solve_backend="host"``
     (raises without the native library), or ``"auto"`` with the native
-    library there; otherwise on the device."""
+    library there; otherwise on the device. A complex factor always
+    solves on the device (the native solve is real), whatever the
+    backend, as in the JAX package."""
     from spfx_torch.symbolic import _native
-    if config.solve_backend == "device":
+    if config.solve_backend == "device" or "complex" in config.dtype:
         return False
     ok = _native.available()
     if config.solve_backend == "host" and not ok:
@@ -193,12 +192,16 @@ def device_solve(f, F, G, b: np.ndarray) -> np.ndarray:
 
 def refined_solve(solve1, A, config: Config, b, refine: int | None):
     """Solve A x = b with ``solve1`` (the factor's host or device solve), then
-    ``refine`` sweeps of f64 iterative refinement against A (the
-    config's ``refine_iters`` when None), stopping early once the residual
-    is under ``config.refine_tol``."""
+    ``refine`` sweeps of iterative refinement against A (the config's
+    ``refine_iters`` when None), stopping early once the residual is under
+    ``config.refine_tol``. Refinement runs in f64, or in complex128 for a
+    complex right-hand side or factor."""
     refine = config.refine_iters if refine is None else refine
-    b = np.asarray(b).astype(np.float64)
-    x = solve1(b).astype(np.float64)
+    b = np.asarray(b)
+    wide = np.complex128 if (np.iscomplexobj(b) or "complex" in config.dtype) \
+        else np.float64
+    b = b.astype(wide)
+    x = solve1(b).astype(wide)
     if refine <= 0:
         return x
     bn = np.abs(b).max() + 1e-300
@@ -206,7 +209,7 @@ def refined_solve(solve1, A, config: Config, b, refine: int | None):
         r = b - A @ x
         if np.abs(r).max() / bn < config.refine_tol:
             break
-        x = x + solve1(r).astype(np.float64)
+        x = x + solve1(r).astype(wide)
     return x
 
 
@@ -256,7 +259,8 @@ class CholeskyFactor:
         return device_solve(self, self.L, self.L, b)
 
     def solve(self, b: np.ndarray, refine: int | None = None) -> np.ndarray:
-        """Solve A x = b with f64 iterative refinement (mixed precision)."""
+        """Solve A x = b with f64 (complex: complex128) iterative
+        refinement (mixed precision)."""
         solve1 = self._solve_host if self._use_host_solve() \
             else self._solve_device
         return refined_solve(solve1, self.A, self.config, b, refine)
@@ -290,9 +294,10 @@ class CholeskyFactor:
             shape=(sym.n, sym.n))
 
     def logdet(self) -> float:
-        """log det(A) = 2 * sum(log diag(L)) — uses valid diagonal slots."""
+        """log det(A) = 2 * sum(log diag(L)) — uses valid diagonal slots
+        (a complex L's diagonal is real)."""
         sym = self.sym
-        Lh = self.host_factor().astype(np.float64)
+        Lh = self.host_factor().real.astype(np.float64)
         tot = 0.0
         for s in range(sym.nsuper):
             c1, c2 = sym.sn_start[s], sym.sn_start[s + 1]

@@ -77,6 +77,16 @@ _SIGNATURES = {
     "chol_small": {f"spfx_cholesky_small_batched_{t}": [_vp, _vp, _c_int,
                                                         _c_int, _vp]
                    for t in ("f32", "f64")},
+    # complex diagonal blocks, the signatures of potrf_inv and getrf_inv
+    "diag_block_c": {
+        **{f"spfx_potrf_inv_{t}": [_vp, _vp, _vp, _vp, _c_int, _c_int, _vp]
+           for t in ("c64", "c128")},
+        **{f"spfx_getrf_inv_{t}": [_vp] * 6 + [_c_int, _c_int, _vp]
+           for t in ("c64", "c128")}},
+    # (A, A's 3 strides, B, B's 3 strides, C, batch, m, n, k, stream)
+    "bmm_bf16x3": {"spfx_bmm_bf16x3_f32": [_vp, _c_ll, _c_ll, _c_ll, _vp,
+                                           _c_ll, _c_ll, _c_ll, _vp, _c_int,
+                                           _c_int, _c_int, _c_int, _vp]},
 }
 
 _libs: dict = {}
@@ -85,7 +95,8 @@ build_log: dict = {}          # source name -> nvcc's output (ptxas -v)
 _launches = {"window_gather2": 0, "window_gather": 0, "potrf_inv": 0,
              "getrf_inv": 0, "chol_panel_lanes": 0, "lu_panel_lanes": 0,
              "chol_panel_wide": 0, "lu_panel_wide": 0, "extend_add_rows": 0,
-             "syrk_gemm_batched": 0, "cholesky_small_batched": 0}
+             "syrk_gemm_batched": 0, "cholesky_small_batched": 0,
+             "potrf_inv_c": 0, "getrf_inv_c": 0, "bmm_bf16x3": 0}
 
 
 def count(name: str) -> None:

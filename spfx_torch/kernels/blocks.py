@@ -52,15 +52,28 @@ the JAX package:
   products to the rows below, in place on x (n + 1, nrhs). No Pallas
   kernel computes them in the JAX package (off the TPU its triangular
   solves are ``lax.linalg.triangular_solve``), so they are library calls
-  here: ``torch.linalg.solve_triangular`` and ``torch.bmm``.
+  here: ``torch.linalg.solve_triangular`` and ``matmul.bmm``.
+
+Complex factors (complex64, complex128) run every step above. Cholesky is
+Hermitian, A = L L^H, so its products and solves take the conjugate
+transpose where the real path takes the transpose (``_ht``): the blocked
+panel's Pb L^{-H} and trailing Pcol Pcol^H, every update's C = G H^H, and
+the backward solve's L21^H and L11^H, as the JAX package's ``_conj`` sites
+do. LU never conjugates: U is stored transposed (``Ux`` holds U^T), not
+conjugated. Complex panels always take the blocked path
+(``route.route_panel``).
+
+Every batched product goes through ``matmul.bmm``, which runs float32
+products as three bf16 passes under the JAX precision "high" and is
+``torch.bmm`` otherwise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from spfx_torch.kernels import (extend_add, gather, panel, panel_lanes,
-                                panel_wide, route)
+from spfx_torch.kernels import (extend_add, gather, matmul, panel,
+                                panel_lanes, panel_wide, route)
 from spfx_torch.kernels.panel_lanes import to_lanes, to_task_major
 from spfx_torch.plan.schedule import ALIGN
 
@@ -73,6 +86,12 @@ def assemble(idx, vals, storage: int):
     L = torch.zeros(storage, dtype=vals.dtype, device=vals.device)
     L[idx] = vals
     return L
+
+
+def _ht(x):
+    """The conjugate transpose of a batch of matrices (the transpose of a
+    real one)."""
+    return x.transpose(1, 2).conj()
 
 
 def _col_mask(widths, cp: int, dtype):
@@ -100,8 +119,8 @@ def _chol_deltas_blocked(Draw, Braw, widths, nbelow, cp: int, rbp: int):
     """Cholesky panel deltas (new - old) of task-major blocks Draw
     (B, cp, cp) / Braw (B, rbp, cp): NB-column block steps whose only
     serial work is the batched potrf + explicit inverse of the (NB, NB)
-    diagonal block; the column-panel solve is Pb @ inv^T and the trailing
-    update a batched product."""
+    diagonal block; the column-panel solve is Pb @ inv^H and the trailing
+    update a batched product (conjugate transposes: A = L L^H)."""
     B = widths.shape[0]
     cm = _col_mask(widths, cp, Draw.dtype)
     D = Draw * cm[:, None, :] * cm[:, :, None]
@@ -114,15 +133,14 @@ def _chol_deltas_blocked(Draw, Braw, widths, nbelow, cp: int, rbp: int):
         e = min(s + NB, cp)
         wrel = (widths - s).clamp(0, e - s).to(torch.int32)
         Lss, inv = panel.potrf_inv(wrel, M[:, s:e, s:e].contiguous())
-        # X L^T = Pb  ->  X = Pb @ inv^T
-        Pcol = torch.bmm(M[:, e:, s:e], inv.transpose(1, 2))
+        # X L^H = Pb  ->  X = Pb @ inv^H
+        Pcol = matmul.bmm(M[:, e:, s:e], _ht(inv))
         M[:, s:e, s:e] = Lss
         M[:, e:, s:e] = Pcol
         if e < cp:
             # rows of Pcol aligned to the future columns are its leading
             # cp - e rows
-            M[:, e:, e:] -= torch.bmm(Pcol, Pcol[:, :cp - e, :]
-                                      .transpose(1, 2))
+            M[:, e:, e:] -= matmul.bmm(Pcol, _ht(Pcol[:, :cp - e, :]))
     # the trailing updates touched the diag window's upper half (zero by
     # the storage contract); mask L11 back to lower so dD is zero there
     L11 = torch.tril(M[:, :cp, :])
@@ -141,7 +159,8 @@ def _chol_deltas_blocks(Draw, Braw, widths, nbelow, cp: int, rbp: int,
     gives the class under ``mode``: the blocked path, the lanes kernel (in
     its (rows, cp, B) layout, there and back) or the wide kernel."""
     B = widths.shape[0]
-    r = route.route_panel(cp, rbp, B, Draw.element_size(), mode=mode)
+    r = route.route_panel(cp, rbp, B, Draw.element_size(), mode=mode,
+                          cplx=Draw.is_complex())
     if r == "lanes":
         ddT, dbT = panel_lanes.chol_panel_deltas_lanes(
             widths, nbelow, to_lanes(Draw), to_lanes(Braw), cp, rbp)
@@ -187,14 +206,14 @@ def update_rows_sym_t(L, kw, mrows, rstart, src_start, head_start,
     """Update rows E (B, mp + ALIGN/kp, csp) of one M-tiled bucket: each
     batch item is one (<= mp)-row source tile in its superwindow (true rows
     at [rstart, rstart+mrows)), against its task's head window (k-masked to
-    the source width kw). C = G H^T's column n lands at target column
+    the source width kw). C = G H^H's column n lands at target column
     tgt_cpos[n] (``_place_cols``)."""
     rows_g = mp + ALIGN // kp
     np_h = tgt_cpos.shape[1]
     G, H = _pair_gather_aligned(L, src_start, rows_g, head_start, np_h, kp)
     G = G * _rng_mask(rstart, mrows, rows_g, L.dtype)[:, :, None]
     H = H * _col_mask(kw, kp, L.dtype)[:, None, :]
-    return _place_cols(torch.bmm(G, H.transpose(1, 2)), tgt_cpos, csp)
+    return _place_cols(matmul.bmm(G, _ht(H)), tgt_cpos, csp)
 
 
 def _place_cols(C, tgt_cpos, csp: int):
@@ -252,8 +271,8 @@ def update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
                                   kp)
     GU, HU = _pair_gather_aligned(Ux, src_start, rows_g, head_start, np_h,
                                   kp)
-    CL = torch.bmm(GL * rm, (HU * km).transpose(1, 2))
-    CU = torch.bmm(GU * rm, (HL * km).transpose(1, 2))
+    CL = matmul.bmm(GL * rm, (HU * km).transpose(1, 2))
+    CU = matmul.bmm(GU * rm, (HL * km).transpose(1, 2))
     return _place_cols(CL, tgt_cpos, csp), _place_cols(CU, tgt_cpos, csp)
 
 
@@ -284,19 +303,18 @@ def _task_gather(L, starts, rows: int, win: int):
 # --------------------------------------------------------------------------
 
 def _sym_rows(G, tgt_cpos, csp: int):
-    """Update rows E = C placed by tgt_cpos, C = G G_N^T, where the N block
+    """Update rows E = C placed by tgt_cpos, C = G G_N^H, where the N block
     G_N is G's leading Np rows (UC and rowwin U steps)."""
     np_ = tgt_cpos.shape[1]
-    return _place_cols(torch.bmm(G, G[:, :np_, :].transpose(1, 2)),
-                       tgt_cpos, csp)
+    return _place_cols(matmul.bmm(G, _ht(G[:, :np_, :])), tgt_cpos, csp)
 
 
 def _lu_rows(GL, GU, tgt_cpos, csp: int):
     """LU update rows (EL, EU): the crossed products CL = GL GU_N^T and
     CU = GU GL_N^T, each placed by tgt_cpos (see _sym_rows)."""
     np_ = tgt_cpos.shape[1]
-    CL = torch.bmm(GL, GU[:, :np_, :].transpose(1, 2))
-    CU = torch.bmm(GU, GL[:, :np_, :].transpose(1, 2))
+    CL = matmul.bmm(GL, GU[:, :np_, :].transpose(1, 2))
+    CU = matmul.bmm(GU, GL[:, :np_, :].transpose(1, 2))
     return _place_cols(CL, tgt_cpos, csp), _place_cols(CU, tgt_cpos, csp)
 
 
@@ -485,22 +503,22 @@ def _lu_deltas_blocked(DLraw, DUraw, BLraw, BUraw, widths, nbelow,
         # L side below the block: X U = P  ->  X = P Uinv
         PbL = torch.cat([Mf[:, e:, s:e], PL[:, :, s:e]], dim=1) if rbp \
             else Mf[:, e:, s:e]
-        Lcol = torch.bmm(PbL, Uinv)
+        Lcol = matmul.bmm(PbL, Uinv)
         Ld = Lcol[:, :cp - e, :]            # rows e..cp <-> future columns
         Mf[:, s:e, s:e] = torch.tril(Lb, -1) + Ub
         if e < cp:
             # U side row block: L U12 = A  ->  U12 = Linv A (unit L)
-            U12 = torch.bmm(Linv, Mf[:, s:e, e:])
+            U12 = matmul.bmm(Linv, Mf[:, s:e, e:])
             Mf[:, s:e, e:] = U12
             Mf[:, e:, s:e] = Ld
-            Mf[:, e:, e:] -= torch.bmm(Ld, U12)
+            Mf[:, e:, e:] -= matmul.bmm(Ld, U12)
         if rbp:
             # U^T below the panel: X L^T = P (unit)  ->  X = P Linv^T
-            U12t_pu = torch.bmm(PU[:, :, s:e], Linv.transpose(1, 2))
+            U12t_pu = matmul.bmm(PU[:, :, s:e], Linv.transpose(1, 2))
             Lp = Lcol[:, cp - e:, :]
             if e < cp:
-                PL[:, :, e:] -= torch.bmm(Lp, U12)
-                PU[:, :, e:] -= torch.bmm(U12t_pu, Ld.transpose(1, 2))
+                PL[:, :, e:] -= matmul.bmm(Lp, U12)
+                PU[:, :, e:] -= matmul.bmm(U12t_pu, Ld.transpose(1, 2))
             PL[:, :, s:e] = Lp
             PU[:, :, s:e] = U12t_pu
     L11 = torch.tril(Mf, -1) + torch.eye(cp, dtype=dt, device=Mf.device)
@@ -521,7 +539,7 @@ def _lu_deltas_blocks(DLraw, DUraw, BLraw, BUraw, widths, nbelow, cp: int,
     dbu)."""
     B = widths.shape[0]
     r = route.route_panel(cp, rbp, B, DLraw.element_size(), lu=True,
-                          mode=mode)
+                          mode=mode, cplx=DLraw.is_complex())
     if r == "lanes":
         ddl, ddu, dbl, dbu = panel_lanes.lu_panel_deltas_lanes(
             widths, nbelow, *(to_lanes(t) for t in (DLraw, DUraw, BLraw,
@@ -602,20 +620,21 @@ def _solve_fwd(L11, L21, x, xcols, xrows, lu: bool):
                                       unitriangular=lu)
     x[ic] = y
     if L21.shape[1]:
-        upd = torch.bmm(L21, y)
+        upd = matmul.bmm(L21, y)
         x.index_add_(0, _x_idx(x, xrows).reshape(-1),
                      upd.reshape(-1, x.shape[1]), alpha=-1)
     return x
 
 
-def _solve_bwd(L11, L21, x, xcols, xrows):
-    """x[cols] = L11^{-T} (x[cols] - L21^T x[below]), in place."""
+def _solve_bwd(L11, L21, x, xcols, xrows, lu: bool):
+    """x[cols] = L11^{-H} (x[cols] - L21^H x[below]), in place; for LU
+    (``lu``, F = U^T) the transposes, unconjugated."""
+    tr = (lambda t: t.transpose(1, 2)) if lu else _ht
     ic = _x_idx(x, xcols)
     t = x[ic]
     if L21.shape[1]:
-        t = t - torch.bmm(L21.transpose(1, 2), x[_x_idx(x, xrows)])
-    x[ic] = torch.linalg.solve_triangular(L11.transpose(1, 2), t,
-                                          upper=True)
+        t = t - matmul.bmm(tr(L21), x[_x_idx(x, xrows)])
+    x[ic] = torch.linalg.solve_triangular(tr(L11), t, upper=True)
     return x
 
 
@@ -631,12 +650,12 @@ def solve_fwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
 
 def solve_bwd_level_c(F, x, widths, nbelow, diag_start, below_start, xcols,
                       xrows, cp: int, rbp: int, lu: bool = False):
-    """x[cols] = L11^{-T} (x[cols] - L21^T x[below]) for every task of one
+    """x[cols] = L11^{-H} (x[cols] - L21^H x[below]) for every task of one
     PC bucket, in place on x; returns x. For LU, F is U^T, so L11^T is U's
-    diagonal block (not unit)."""
+    diagonal block (not unit), and nothing is conjugated."""
     L11, L21 = _panel_parts_c(F, widths, nbelow, diag_start, below_start,
                               cp, rbp)
-    return _solve_bwd(L11, L21, x, xcols, xrows)
+    return _solve_bwd(L11, L21, x, xcols, xrows, lu)
 
 
 def solve_fwd_level(F, x, widths, diag_row_start, below_row_start, xcols,
@@ -650,7 +669,8 @@ def solve_fwd_level(F, x, widths, diag_row_start, below_row_start, xcols,
 def solve_bwd_level(F, x, widths, diag_row_start, below_row_start, xcols,
                     xrows, lu: bool = False):
     """``solve_bwd_level_c`` for one rowwin P bucket (JAX's
-    ``solve_bwd_level``; for LU, F is U^T: ``solve_bwd_level_lu``). ``lu``
-    changes nothing here: U's diagonal block is not unit."""
+    ``solve_bwd_level``; for LU, F is U^T: ``solve_bwd_level_lu``). With
+    ``lu`` nothing is conjugated; U's diagonal block is not unit either
+    way."""
     L11, L21 = _panel_parts(F, widths, diag_row_start, below_row_start)
-    return _solve_bwd(L11, L21, x, xcols, xrows)
+    return _solve_bwd(L11, L21, x, xcols, xrows, lu)

@@ -8,8 +8,11 @@ rows Ef (RE, csp) and their target rows ``rows`` (RE,) int32, and computes
 
 rows < 0 are dropped, and several rows of Ef may name the same slab row.
 It works in place on the slab (a row-major view of the flat factor) and
-returns it: the JAX kernel aliases its output onto the slab input. float32
-and float64 only.
+returns it: the JAX kernel aliases its output onto the slab input.
+float32, float64, complex64 and complex128: on the card a complex slab
+row of csp values goes into the same kernel as the real row of 2 csp values
+it is in memory (``torch.view_as_real``), with the same row table (the JAX
+package subtracts complex rows with XLA's scatter).
 
 ``extend_add_rows2(slab_l, slab_u, rows, EL, EU)`` is the same on LU's two
 factor arrays at one offset, the port's form of ``extend_add_region_lu``'s
@@ -32,13 +35,13 @@ import torch
 
 from spfx_torch.kernels import _cuda
 
-_DTYPES = (torch.float32, torch.float64)
+_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 
 def _check(slab, rows, Ef) -> None:
     if slab.dtype not in _DTYPES:
-        raise TypeError(f"extend_add_rows: slab must be float32 or float64, "
-                        f"got {slab.dtype}")
+        raise TypeError(f"extend_add_rows: slab must be float32, float64, "
+                        f"complex64 or complex128, got {slab.dtype}")
     if Ef.dtype != slab.dtype:
         raise TypeError(f"extend_add_rows: Ef is {Ef.dtype}, slab "
                         f"{slab.dtype}")
@@ -90,16 +93,25 @@ def extend_add_rows_plain(slab, rows, Ef):
     return slab
 
 
+def _real(t):
+    """A complex (R, c) tensor as the real (R, 2c) view of its memory."""
+    return torch.view_as_real(t).view(t.shape[0], 2 * t.shape[1]) \
+        if t.is_complex() else t
+
+
 def _apply(rows, pairs) -> None:
     """slab -= the live rows of E at ``rows`` for each (slab, E) of
     ``pairs`` (one pair, or LU's two at one offset), checked by the caller:
-    the plain version on the CPU, one launch of the kernel on the card."""
+    the plain version on the CPU, one launch of the kernel on the card
+    (complex through the real views)."""
     slab = pairs[0][0]
     if slab.device.type == "cpu":
         _check_rows(slab, rows)
         for s, e in pairs:
             extend_add_rows_plain(s, rows, e)
         return
+    pairs = [(_real(s), _real(e)) for s, e in pairs]
+    slab = pairs[0][0]
     name = "extend_add_rows" if len(pairs) == 1 else "extend_add_rows2"
     total = rows.shape[0]
     vec = vector_path(slab.shape[1], slab.element_size(),

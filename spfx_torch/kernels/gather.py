@@ -9,6 +9,15 @@ with ``s < 0`` is a dead task and comes back as zeros (what the CPU gather
 with FILL_OR_DROP gives, so the kernel and the plain version agree bit for
 bit). A live window must end inside ``L``: it is never clipped.
 
+float32, float64, complex64 and complex128. The kernel moves 16-byte
+vectors and aligns each start down to ALIGN of the element type it is
+given, so a complex ``L`` goes in as itself, with its own element size
+(8 or 16 bytes: two values or one per vector), and no start changes. Its
+real view (``torch.view_as_real(L).reshape(-1)``) would need the starts
+doubled, and the kernel's alignment of a doubled start, (2s // ALIGN) *
+ALIGN, is not the doubled alignment 2 (s // ALIGN) * ALIGN whenever s %
+ALIGN >= ALIGN / 2.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 CUDA kernel (csrc/window_gather.cu) or raises.
 """
@@ -20,13 +29,13 @@ import torch
 from spfx_torch.kernels import _cuda
 from spfx_torch.plan.schedule import ALIGN
 
-_DTYPES = (torch.float32, torch.float64)
+_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 
 def _check(L, starts, win: int, what: str) -> None:
     if L.dtype not in _DTYPES:
-        raise TypeError(f"{what}: L must be float32 or float64, got "
-                        f"{L.dtype}")
+        raise TypeError(f"{what}: L must be float32, float64, complex64 or "
+                        f"complex128, got {L.dtype}")
     if L.dim() != 1 or not L.is_contiguous():
         raise ValueError(f"{what}: L must be a contiguous 1-D tensor")
     if starts.dtype != torch.int32 or starts.dim() != 1 \

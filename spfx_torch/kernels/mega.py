@@ -20,8 +20,10 @@ entry-value buffers. The kernel wrappers count their launches on the host,
 so the warm-up and the capture count and a replay does not: the capture's
 counts are kept in ``captures[mode]["launches"]``, the replays in
 ``replays``. Precision is baked into the captured products; the config
-fixes it per context. A failed build, capture or replay raises: nothing
-falls back to the eager walk, which is ``engine="calls"``.
+fixes it per context (under "high" the float32 products are launches of
+``matmul.bmm_bf16x3``, counted as ``bmm_bf16x3``). A failed build,
+capture or replay raises: nothing falls back to the eager walk, which is
+``engine="calls"``.
 
 Each ``run`` copies the new entry values in, replays the graph and returns
 a clone of the factor: the graph's output lives in its private memory pool
@@ -45,39 +47,48 @@ import time
 import numpy as np
 import torch
 
-from spfx_torch.kernels import _cuda, blocks, route
+from spfx_torch.kernels import _cuda, blocks, matmul, route
 from spfx_torch.plan.schedule import PanelBucketC, UpdateBucketC
 from spfx_torch.utils.config import Config, DEFAULT
 
 # JAX matmul precision -> torch float32 matmul precision. "default" and
-# "bfloat16" (one bf16 pass on the TPU) become TF32, which is finer. JAX's
-# "high" is bf16x3 (~1e-6 relative); torch has no such mode, and TF32 (a
-# 10-bit mantissa) would be coarser, so check_config refuses it.
+# "bfloat16" (one bf16 pass on the TPU) become TF32, which is finer. "high"
+# (bf16x3) keeps torch at full float32 for whatever product does not go
+# through matmul.bmm, and matmul.bmm runs the walks' float32 products as
+# the bf16x3 kernel (matmul.bmm_bf16x3).
 _PRECISION = {"highest": "highest", "float32": "highest",
-              "default": "medium", "bfloat16": "medium"}
+              "default": "medium", "bfloat16": "medium", "high": "highest"}
+
+
+def _mode(name: str) -> str:
+    """The product mode a JAX precision name selects: "high", or torch's
+    setting for it."""
+    return "high" if name == "high" else _PRECISION[name]
 
 
 @contextlib.contextmanager
 def matmul_precision(name: str):
     """float32 matrix products at the JAX precision ``name`` ("highest":
-    full float32, no TF32), restored afterwards."""
+    full float32, no TF32; "high": matmul.bmm's bf16x3 kernel), restored
+    afterwards."""
     old = torch.get_float32_matmul_precision()
     old_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.set_float32_matmul_precision(_PRECISION[name])
     torch.backends.cuda.matmul.allow_tf32 = _PRECISION[name] != "highest"
     try:
-        yield
+        with matmul.precision(_mode(name)):
+            yield
     finally:
         torch.set_float32_matmul_precision(old)
         torch.backends.cuda.matmul.allow_tf32 = old_tf32
 
 
 def update_precision(config: Config):
-    """The context for the UT update steps inside the walk's
+    """The context for the update steps inside the walk's
     ``matmul_precision(config.matmul_precision)``: a no-op unless
-    ``config.update_precision`` names another torch mode."""
+    ``config.update_precision`` selects another product mode."""
     upd = config.update_precision or config.matmul_precision
-    if _PRECISION[upd] == _PRECISION[config.matmul_precision]:
+    if _mode(upd) == _mode(config.matmul_precision):
         return contextlib.nullcontext
     return functools.partial(matmul_precision, upd)
 

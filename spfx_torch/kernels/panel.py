@@ -22,8 +22,16 @@ same shapes and returns (L, U, Linv, Uinv), each (B, nb, nb):
 - Linv and Uinv = the inverses of the unmasked L and U, the identity on
   the padding (wrel == 0 gives I).
 
+Complex blocks (complex64, complex128) take the same contracts: for
+``potrf_inv`` the block is Hermitian, L L^H = D with real positive pivots
+(the real part of each diagonal entry is taken, and L's diagonal is stored
+real); ``getrf_inv`` divides in complex arithmetic. Neither conjugates
+anything else.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
-CUDA kernel (csrc/potrf_inv.cu, csrc/getrf_inv.cu) or raises.
+CUDA kernel (csrc/potrf_inv.cu, csrc/getrf_inv.cu; complex blocks
+csrc/diag_block_c.cu, counted as ``potrf_inv_c`` / ``getrf_inv_c``) or
+raises.
 """
 
 from __future__ import annotations
@@ -34,11 +42,15 @@ from spfx_torch.kernels import _cuda
 
 NB = 32                    # diagonal block size of the blocked panel path
 
+# dtype -> the suffix of the C entry points
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
+
 
 def _check(name: str, wrel, D) -> None:
-    if D.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: D must be float32 or float64, got "
-                        f"{D.dtype}")
+    if D.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: D must be float32, float64, complex64 or "
+                        f"complex128, got {D.dtype}")
     if D.dim() != 3 or D.shape[1] != D.shape[2] or not 1 <= D.shape[1] <= NB:
         raise ValueError(f"{name}: D must be (B, nb, nb) with nb <= {NB},"
                          f" got {tuple(D.shape)}")
@@ -55,17 +67,19 @@ def _check(name: str, wrel, D) -> None:
 
 
 def _launch(name: str, wrel, D, outs) -> None:
-    """Launch kernel ``name`` of library ``name`` on CUDA tensors: inputs
-    (wrel, D), outputs ``outs`` of D's shape."""
+    """Launch kernel ``name`` on CUDA tensors: inputs (wrel, D), outputs
+    ``outs`` of D's shape; library ``name`` for real blocks, diag_block_c
+    (counted as ``name``_c) for complex ones."""
     B, nb = D.shape[0], D.shape[1]
-    lib = _cuda.lib(name)
-    fn = getattr(lib, f"spfx_{name}_"
-                 + ("f32" if D.dtype == torch.float32 else "f64"))
+    cplx = D.is_complex()
+    lib = _cuda.lib("diag_block_c" if cplx else name)
+    fn = getattr(lib, f"spfx_{name}_{_SUFFIX[D.dtype]}")
     rc = fn(wrel.data_ptr(), D.data_ptr(), *(o.data_ptr() for o in outs),
             B, nb, _cuda.stream_ptr(D.device))
-    _cuda.check(rc, name)
+    what = name + ("_c" if cplx else "")
+    _cuda.check(rc, what)
     if B:
-        _cuda.count(name)
+        _cuda.count(what)
 
 
 def masked_block(wrel, D):
@@ -79,13 +93,18 @@ def masked_block(wrel, D):
 
 
 def potrf_inv_plain(wrel, D):
-    """Plain PyTorch version, the kernel's recurrence batched over B."""
+    """Plain PyTorch version, the kernel's recurrence batched over B
+    (complex: Hermitian, real pivots, the trailing update conjugated)."""
     nb = D.shape[-1]
     A, cm = masked_block(wrel, D)
+    cplx = A.is_complex()
     for j in range(nb):
-        piv = torch.rsqrt(A[:, j, j])
+        piv = torch.rsqrt(A[:, j, j].real if cplx else A[:, j, j])
         A[:, j:, j] *= piv[:, None]
-        A[:, j + 1:, j + 1:] -= A[:, j + 1:, j, None] * A[:, None, j + 1:, j]
+        if cplx:
+            A[:, j, j] = A[:, j, j].real.clone()
+        A[:, j + 1:, j + 1:] -= (A[:, j + 1:, j, None]
+                                 * A[:, None, j + 1:, j].conj())
     A = torch.tril(A)
     X = torch.zeros_like(A)
     eye = torch.eye(nb, dtype=D.dtype, device=D.device)

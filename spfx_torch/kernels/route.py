@@ -21,7 +21,19 @@ from the JAX route, both because the port has no TPU to model:
 - where the JAX route answers ``xla`` (a forced family on a class wider
   than 256), the port answers ``blocked``: it has no XLA expander path.
 
-``SPFX_NO_PALLAS`` is not ported. Any other value of the variable raises.
+A complex class always answers ``blocked``, whatever the mode: the
+whole-panel kernels take float32 and float64 only, and the JAX package
+routes complex panels away from its Pallas kernels as well
+(``_chol_deltas_blocks`` / ``_lu_deltas_blocks`` in spfx/kernels/blocks.py).
+
+Any other value of the variable raises.
+
+``SPFX_NO_PALLAS`` is not ported, by design. In the JAX package it sends
+every Pallas call to its XLA fallback; its one user is ``bench.py``'s retry
+after a kernel fails to compile on the TPU. Here the kernels are built
+ahead with nvcc, so there is no compile failure to retry around, and on
+the card every wrapper launches its kernel or raises: a switch to the
+plain versions would be the fallback the port does not have.
 """
 
 from __future__ import annotations
@@ -47,15 +59,19 @@ def panel_mode() -> str:
 
 
 def route_panel(cp: int, rbp: int, B: int, itemsize: int = 4,
-                lu: bool = False, mode: str | None = None) -> str:
+                lu: bool = False, mode: str | None = None,
+                cplx: bool = False) -> str:
     """'blocked' | 'lanes' | 'wide' for a (cp, rbp, B) panel class under
-    ``mode`` (read from the environment when None). ``rbp``, ``B``,
-    ``itemsize`` and ``lu`` sized the JAX route's VMEM model and do not
-    change the port's answer."""
+    ``mode`` (read from the environment when None); always 'blocked' for
+    a complex class (``cplx``). ``rbp``, ``B``, ``itemsize`` and ``lu``
+    sized the JAX route's VMEM model and do not change the port's
+    answer."""
     mode = panel_mode() if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"panel mode {mode!r}: expected one of "
                          f"{', '.join(MODES)}")
+    if cplx:
+        return "blocked"
     if mode in ("lanes", "mixed") and cp <= LANES_CP_MAX:
         return "lanes"
     if mode == "wide" and cp <= WIDE_CP_MAX:

@@ -95,7 +95,8 @@ class LUFactor:
         return device_solve(self, self.Lx, self.Ux, b)
 
     def solve(self, b: np.ndarray, refine: int | None = None) -> np.ndarray:
-        """Solve A x = b with f64 iterative refinement (mixed precision)."""
+        """Solve A x = b with f64 (complex: complex128) iterative
+        refinement (mixed precision)."""
         solve1 = self._solve_host if self._use_host_solve() \
             else self._solve_device
         return refined_solve(solve1, self.A, self.config, b, refine)

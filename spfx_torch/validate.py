@@ -9,10 +9,15 @@ import numpy as np
 import scipy.sparse as sp
 
 
-def synth_rhs(A: sp.spmatrix, seed: int = 0) -> np.ndarray:
-    """Deterministic RHS like the reference's synthesized B (:3182-3193)."""
+def synth_rhs(A: sp.spmatrix, seed: int = 0,
+              cplx: bool = False) -> np.ndarray:
+    """Deterministic RHS like the reference's synthesized B (:3182-3193);
+    with ``cplx``, complex: real and imaginary parts drawn in turn from
+    the same generator (the real part is then not the real RHS)."""
     n = A.shape[0]
     rng = np.random.default_rng(seed)
+    if cplx:
+        return rng.standard_normal(n) + 1j * rng.standard_normal(n)
     return rng.standard_normal(n)
 
 

@@ -127,18 +127,6 @@ def test_no_cuda_raises(monkeypatch):
         spfx_torch.cholesky(generate.laplacian_3d(3))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(dtype="complex128"), "item 6"),
-    (dict(dtype="complex64"), "item 6"),
-    (dict(matmul_precision="high"), "item 6"),
-    (dict(update_precision="high"), "item 6"),
-])
-def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        spfx_torch.Cholesky(generate.laplacian_3d(3), Config(**kw),
-                            device="cpu")
-
-
 def test_update_precision_restores_torch_state():
     """A separate update precision switches torch's float32 matmul mode
     only around the updates, and the walk leaves the global mode as it

@@ -121,7 +121,7 @@ def test_extend_add_rows_rejects_bad_input():
         extend_add.extend_add_rows(slab, torch.tensor([0, 4],
                                                       dtype=torch.int32), E)
     ok = torch.tensor([0, 1], dtype=torch.int32)
-    for bad in (torch.float16, torch.int32, torch.complex128):
+    for bad in (torch.float16, torch.int32):
         with pytest.raises(TypeError):
             extend_add.extend_add_rows(slab.to(bad), ok, E.to(bad))
     with pytest.raises(TypeError):

@@ -403,13 +403,3 @@ def test_lu_no_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spfx_torch.lu(generate.laplacian_3d(3))
 
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(dtype="complex128"), "item 6"),
-    (dict(dtype="complex64"), "item 6"),
-    (dict(matmul_precision="high"), "item 6"),
-    (dict(update_precision="high"), "item 6"),
-])
-def test_lu_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        spfx_torch.LU(generate.laplacian_3d(3), Config(**kw), device="cpu")

@@ -223,16 +223,6 @@ def test_solver_forward_backward_is_solve():
     assert s.solve(f.L, f.L, x, {}) is x and torch.equal(x, want)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(dtype="complex64"), "item 6"),
-    (dict(matmul_precision="high"), "item 6"),
-])
-def test_unported_options_still_raise(kw, item):
-    for kind in (spfx_torch.Cholesky, spfx_torch.LU):
-        with pytest.raises(NotImplementedError, match=item):
-            kind(generate.laplacian_3d(3), Config(**kw), device="cpu")
-
-
 def test_solve_backend_values():
     """'device' no longer raises; an unknown backend does."""
     A = generate.laplacian_3d(3)
