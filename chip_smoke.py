@@ -52,14 +52,19 @@ non-zero):
    Laplacian, ``magnetic_laplacian``, and its unsymmetric variant, on the
    48^3 analysis), complex64 and complex128, against the plain versions,
    with L L^H = D and L U = D and the inverses checked; seeded blocks of
-   widths 0, 1, 7, 8, 9, 31 and 32 in one call and a block scaled by
-   2^40, held row by row and column by column; times of kernel, plain
-   version and library calls at the largest call, and their bounds;
+   widths 0, 1, 7, 8, 9, 31 and 32 in one call and blocks scaled by
+   2^40, 2^70 and 2^-70, held row by row and column by column; times of
+   kernel, plain version and library calls at the largest call, and their
+   bounds; getrf_inv_c (csrc/getrf_inv_c.cu) also at B = 1 (the plan's
+   widest block) and in complex128 at the same calls;
 3g. bmm_bf16x3 (csrc/bmm_bf16x3.cu) at the product shape of every UT step
-   of the 48^3 f32 plans against bmm_bf16x3_plain (tolerance from k), the
-   plain version against float64 within the bf16x3 error model and below
-   one bf16 pass's error; times against torch.bmm at full float32 and at
-   TF32, and its bound;
+   of the 48^3 f32 plans, each read as it lies, and at a transposed and
+   an unaligned operand, each copied into the kernel's layout first,
+   against
+   bmm_bf16x3_plain (tolerance from k), the plain version against float64
+   within the bf16x3 error model and below one bf16 pass's error; times
+   against torch.bmm at full float32 and at TF32, and its bound, at the
+   largest product and over all of them;
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
    default Config, whose engine "mega" captures the walk into a CUDA
    graph at the first factorization (an eager warm-up first) and replays
@@ -1313,9 +1318,11 @@ def chol_small_row(dev, gen):
 def edge_diag_c_calls(dev, lu: bool):
     """Seeded complex128 calls at nb = 32 (a generator of their own, so
     that the other checks' draws stay as they were): blocks of widths 0, 1,
-    7, 8, 9, 31 and 32 in one call, and one block scaled by 2^40. Cholesky:
-    X X^H + 32 I with 1e3 (1 + i) above the diagonal; LU: diagonally
-    dominant blocks with both triangles filled."""
+    7, 8, 9, 31 and 32 in one call, and one block scaled by 2^40, one by
+    2^70 and one by 2^-70 (where the square of a complex64 pivot's modulus
+    leaves float32's range, so that a division forming it would fail).
+    Cholesky: X X^H + 32 I with 1e3 (1 + i) above the diagonal; LU:
+    diagonally dominant blocks with both triangles filled."""
     import torch
     own = torch.Generator(device=dev)
     own.manual_seed(40 + lu)
@@ -1327,8 +1334,9 @@ def edge_diag_c_calls(dev, lu: bool):
         D = X @ X.mH + 32 * torch.eye(32, **c128)
         D = D + torch.triu(torch.full((32, 32), 1e3 + 1e3j, **c128), 1)
     w = torch.tensor([0, 1, 7, 8, 9, 31, 32], device=dev, dtype=torch.int32)
-    return [(w, D[:7].contiguous()),
-            (w[-1:].contiguous(), (D[7:] * 2.0 ** 40).contiguous())]
+    return [(w, D[:7].contiguous())] + [
+        (w[-1:].contiguous(), (D[7:] * 2.0 ** e).contiguous())
+        for e in (40, 70, -70)]
 
 
 def diag_c_rows(pcalls, lcalls):
@@ -1379,6 +1387,28 @@ def diag_c_rows(pcalls, lcalls):
             path_ms=time_ms(path, reps=1, rounds=3),
             path_bound_ms=bound(sum(b for b, _ in pw),
                                 4 * sum(o for _, o in pw), "float32")[0])
+    # getrf_inv_c per launch at B = 1, on the plan's widest block (the
+    # first of full width: a launch's floor is its widest block's path),
+    # and complex128 at the same calls
+    row = rows["getrf_inv_c"]
+    widths = [int(w.clamp(0, d.shape[1]).max()) for w, d in lcalls]
+    wb, d = lcalls[widths.index(max(widths))]
+    i = int(wb.clamp(0, d.shape[1]).argmax())
+    w1, D1 = wb[i:i + 1].contiguous(), d[i:i + 1].contiguous()
+    row["b1_width"] = max(widths)
+    wrel, D = max(lcalls, key=lambda c: c[0].shape[0])
+    row["ms_b1"] = time_ms(lambda: panel.getrf_inv(w1, D1))
+    c128 = [(w, d.to(torch.complex128)) for w, d in lcalls]
+    D128, D1_128 = D.to(torch.complex128), D1.to(torch.complex128)
+
+    def path128():
+        for w, d in c128:
+            panel.getrf_inv(w, d)
+    row["ms_c128"] = time_ms(lambda: panel.getrf_inv(wrel, D128))
+    row["ms_b1_c128"] = time_ms(lambda: panel.getrf_inv(w1, D1_128))
+    row["path_ms_c128"] = time_ms(path128, reps=1, rounds=3)
+    nbytes, ops = getrf_work(wrel, D.shape[1], 16)
+    row["bound_ms_c128"] = bound(nbytes, 4 * ops, "float64")[0]
     return rows
 
 
@@ -1389,30 +1419,28 @@ def diag_c_rows(pcalls, lcalls):
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core rate, data sheet
 
 
-def ut_product_shapes(plan):
-    """(batch, m, k, n) of the product C = G H^T of every UT step: G the
-    (mp + ALIGN/kp)-row source superwindows, H the head windows."""
-    from spfx_torch.plan.schedule import ALIGN
-    return [(len(ub.kw), ub.mp + ALIGN // ub.kp, ub.kp, ub.tgt_cpos.shape[1])
-            for lp in plan.levels for ub in lp.updates
-            if getattr(ub, "head_start", None) is not None]
+def _transposed(G):
+    return G.transpose(1, 2).contiguous().transpose(1, 2)
 
 
-def bmm_operands(shape, gen, dev):
-    """Seeded float32 operands of one UT product: G (batch, m, k) and the
-    transposed view H^T (batch, k, n) that the step passes, values spread
-    over 2^20 in scale by row."""
+def _unaligned(G):
     import torch
-    batch, m, k, n = shape
-    G = torch.randn(batch, m, k, generator=gen, device=dev)
-    G = G * torch.exp2(torch.randint(-10, 10, (batch, m, 1), generator=gen,
-                                     device=dev).float())
-    H = torch.randn(batch, n, k, generator=gen, device=dev)
-    return G, H.transpose(1, 2)
+    flat = torch.empty(G.numel() + 1, device=G.device)
+    out = flat[1:].view(G.shape)
+    out.copy_(G)
+    return out
+
+
+# (batch, m, k, n, A's view): calls whose A bmm_bf16x3 copies into its
+# kernel's layout first, a transposed A (the panel path's kind) and an A
+# one value off its allocation
+COPIED_BF16X3 = [(17, 96, 32, 70, _transposed), (9, 64, 64, 36, _unaligned)]
 
 
 def check_bf16x3(shapes, gen, dev):
-    """bmm_bf16x3 at every UT product shape against bmm_bf16x3_plain: both
+    """bmm_bf16x3 at every UT product shape (each read as it lies), and
+    at COPIED_BF16X3's calls (each copied first), against
+    bmm_bf16x3_plain: both
     split alike and multiply bf16 values exactly, so they differ only in
     the order of the float32 sums of 3k terms: each entry within
     3 k 2^-22 of its sum |a||b| (the two orders' rounding, 2^-23 a term
@@ -1424,27 +1452,35 @@ def check_bf16x3(shapes, gen, dev):
     bf16 pass's on the same inputs. Returns the largest |kernel - plain|
     and the largest plain and single-pass errors relative to sum |a||b|."""
     import torch
+    from spfx_torch.bench.kernel_probe import bmm_operands
     from spfx_torch.kernels import matmul
     worst = rel3 = rel1 = 0.0
-    for shape in shapes:
-        G, Ht = bmm_operands(shape, gen, dev)
+    for shape in shapes + COPIED_BF16X3:
+        G, Ht = bmm_operands(shape[:4], gen, dev)
+        want = "fast"
+        if len(shape) > 4:
+            G, want = shape[4](G), "copy"
+        if matmul.path(G, Ht) != want:
+            fail(f"bmm_bf16x3 at {shape[:4]}: path {matmul.path(G, Ht)!r}, "
+                 f"not {want!r}")
         k = shape[2]
         got = matmul.bmm_bf16x3(G, Ht)
         ref = matmul.bmm_bf16x3_plain(G, Ht)
         S = torch.bmm(G.abs().double(), Ht.abs().double())
         d = (got - ref).abs().double()
         if not bool((d <= 3 * k * 2.0 ** -22 * S).all()):
-            fail(f"bmm_bf16x3 at {shape}: {float(d.max()):.3e} from its "
+            fail(f"bmm_bf16x3 at {shape[:4]}: {float(d.max()):.3e} from its "
                  "plain version")
         worst = max(worst, float(d.max()))
         exact = torch.bmm(G.double(), Ht.double())
         e3 = (ref.double() - exact).abs()
         if not bool((e3 <= (3 * 2.0 ** -16 + k * 2.0 ** -22) * S).all()):
-            fail(f"bmm_bf16x3_plain at {shape}: outside the bf16x3 model")
+            fail(f"bmm_bf16x3_plain at {shape[:4]}: outside the bf16x3 "
+                 "model")
         one = torch.bmm(G.bfloat16().double(), Ht.bfloat16().double())
         e1 = (one - exact).abs()
         if not float(e3.max()) < float(e1.max()):
-            fail(f"bmm_bf16x3_plain at {shape}: {float(e3.max()):.3e} not "
+            fail(f"bmm_bf16x3_plain at {shape[:4]}: {float(e3.max()):.3e} not "
                  f"below one bf16 pass's {float(e1.max()):.3e}")
         Sm = S.clamp(min=1e-300)
         rel3 = max(rel3, float((e3 / Sm).max()))
@@ -1458,8 +1494,10 @@ def bmm_bf16x3_row(shapes, gen, dev):
     (the library call) and at TF32, at the largest UT product by
     operations; the bound is the larger of 3 x 2 m n k batch operations
     over the bf16 tensor-core peak and the operands and product's bytes
-    over the memory rate; and all of the path's products in one graph."""
+    over the memory rate; and all of the path's products in one graph,
+    by the kernel and by full-float32 torch.bmm."""
     import torch
+    from spfx_torch.bench.kernel_probe import bmm_operands
     from spfx_torch.kernels import matmul, mega
     shape = max(shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
     batch, m, k, n = shape
@@ -1481,6 +1519,10 @@ def bmm_bf16x3_row(shapes, gen, dev):
         for g, h in pins:
             matmul.bmm_bf16x3(g, h)
 
+    def library_path():
+        for g, h in pins:
+            torch.bmm(g, h)
+
     row = dict(
         shape=f"batch={batch} m={m} k={k} n={n}",
         ms=time_ms(lambda: matmul.bmm_bf16x3(G, Ht)),
@@ -1489,6 +1531,7 @@ def bmm_bf16x3_row(shapes, gen, dev):
         library_tf32_ms=time_ms(tf32),
         bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
         path_ms=time_ms(path, reps=1, rounds=3),
+        library_path_ms=time_ms(library_path, reps=1, rounds=3),
         path_bound_ms=max(bytes_all / HBM_BYTES_PER_S,
                           ops_all / BF16_PEAK) * 1e3)
     del pins
@@ -1973,6 +2016,7 @@ def surfaces(dev) -> None:
     import spfx_torch
     import spfx_torch.__main__ as cli
     from spfx_torch import checkpoint, scaled_residual, synth_rhs
+    from spfx_torch.bench.kernel_probe import unsym_laplacian
     from spfx_torch.io import generate, matrix_market
     d = os.path.join(ROOT, "chiprun_out", "surfaces")
     shutil.rmtree(d, ignore_errors=True)
@@ -2017,43 +2061,6 @@ def surfaces(dev) -> None:
         fail(f"profile scope wrote {len(traces)} traces")
 
 
-def unsym_laplacian(k: int):
-    """laplacian_3d(k) with every entry above the diagonal scaled by a
-    factor from U[0.25, 1] (numpy default_rng(0)): unsymmetric values on a
-    symmetric pattern, so swapped L and U sides would show."""
-    import numpy as np
-    import scipy.sparse as sp
-    from spfx_torch.io import generate
-    A = generate.laplacian_3d(k)
-    up = sp.triu(A, 1).tocoo()
-    up.data = up.data * np.random.default_rng(0).uniform(0.25, 1.0, up.nnz)
-    return sp.csc_matrix(sp.tril(A) + up)
-
-
-def magnetic_laplacian(k: int, unsym: bool = False):
-    """laplacian_3d(k) with each off-diagonal pair -1 / -1 made
-    -e^{i theta} above the diagonal and -e^{-i theta} below it, theta from
-    U[0, 2 pi) (numpy default_rng(0)): a Hermitian matrix with the
-    Laplacian's diagonal, still diagonally dominant, so positive definite.
-    With ``unsym``, every entry above the diagonal then scaled by
-    ``unsym_laplacian``'s factors from U[0.25, 1] (a fresh default_rng(0)):
-    complex unsymmetric values on the symmetric pattern."""
-    import numpy as np
-    import scipy.sparse as sp
-    from spfx_torch.io import generate
-    A = generate.laplacian_3d(k)
-    up = sp.triu(A, 1).tocoo()
-    theta = np.random.default_rng(0).uniform(0.0, 2 * np.pi, up.nnz)
-    vals = up.data * np.exp(1j * theta)
-    U = sp.coo_matrix((vals, (up.row, up.col)), shape=A.shape)
-    low = U.conj().T
-    if unsym:
-        U = sp.coo_matrix((vals * np.random.default_rng(0).uniform(
-            0.25, 1.0, up.nnz), (up.row, up.col)), shape=A.shape)
-    return sp.csc_matrix(sp.diags(A.diagonal().astype(np.complex128))
-                         + U + low)
-
-
 def surfaces_complex(dev) -> None:
     """The CLI on complex MatrixMarket files at GRID_CPU^3 under
     chiprun_out/surfaces_c: the magnetic Laplacian (Hermitian, written as
@@ -2068,6 +2075,7 @@ def surfaces_complex(dev) -> None:
     import shutil
     import spfx_torch.__main__ as cli
     from spfx_torch import checkpoint, scaled_residual, synth_rhs
+    from spfx_torch.bench.kernel_probe import magnetic_laplacian
     from spfx_torch.io import matrix_market
     d = os.path.join(ROOT, "chiprun_out", "surfaces_c")
     shutil.rmtree(d, ignore_errors=True)
@@ -2140,9 +2148,12 @@ def main(argv) -> int:
 
     import spfx_torch
     from spfx_torch import Config
-    from spfx_torch.bench.kernel_probe import (plan_extend_calls,
+    from spfx_torch.bench.kernel_probe import (magnetic_laplacian,
+                                               plan_extend_calls,
                                                plan_getrf_calls,
-                                               plan_potrf_calls)
+                                               plan_potrf_calls,
+                                               unsym_laplacian,
+                                               ut_product_shapes)
     from spfx_torch.io import generate
     from spfx_torch.kernels import _cuda
 
@@ -2329,7 +2340,8 @@ def main(argv) -> int:
             f"err {errs[('potrf_inv_c', dtype)]:.3e}, {len(clcalls)} "
             f"getrf_inv_c calls max abs err "
             f"{errs[('getrf_inv_c', dtype)]:.3e}; both at widths 0, 1, 7, "
-            "8, 9, 31, 32 and scaled by 2^40, by row and column")
+            "8, 9, 31, 32 and scaled by 2^40, 2^70 and 2^-70, by row and "
+            "column")
     rows.update(diag_c_rows(cpcalls, clcalls))
     log(f"[kernels] complex64 timing potrf_inv_c, getrf_inv_c "
         + json.dumps({k: rows[k] for k in ("potrf_inv_c", "getrf_inv_c")})
@@ -2348,7 +2360,8 @@ def main(argv) -> int:
     berr, rel3, rel1 = check_bf16x3(shapes, cgen, dev)
     errs[("bmm_bf16x3", "float32")] = berr
     rows["bmm_bf16x3"] = bmm_bf16x3_row(shapes, cgen, dev)
-    log(f"[kernels] float32: {len(shapes)} bmm_bf16x3 calls, max abs err "
+    log(f"[kernels] float32: {len(shapes)} bmm_bf16x3 calls read as they "
+        f"lie and {len(COPIED_BF16X3)} copied first, max abs err "
         f"{berr:.3e} from the plain version; plain version's largest error "
         f"{rel3:.3e} of sum |a||b| against one bf16 pass's {rel1:.3e}; "
         f"timing " + json.dumps(rows["bmm_bf16x3"])
@@ -2618,7 +2631,7 @@ def main(argv) -> int:
         # Cholesky and its no-pivot LU, its "high" products XLA's bf16x3
         "potrf_inv_c": (cu + "diag_block_c.cu", "spfx/kernels/blocks.py:352",
                         "cholesky_c64"),
-        "getrf_inv_c": (cu + "diag_block_c.cu", "spfx/kernels/blocks.py:842",
+        "getrf_inv_c": (cu + "getrf_inv_c.cu", "spfx/kernels/blocks.py:842",
                         "lu_c64"),
         "bmm_bf16x3": (cu + "bmm_bf16x3.cu", "spfx/kernels/mega.py:383",
                        "cholesky_high"),
@@ -2643,7 +2656,10 @@ def main(argv) -> int:
             "ms_b1": r.get("ms_b1"), "ms_b256": r.get("ms_b256"),
             "lu_path_ms": r.get("lu_path_ms"),
             "lu_path_bound_ms": r.get("lu_path_bound_ms"),
-            "library_tf32_ms": r.get("library_tf32_ms")})
+            "library_tf32_ms": r.get("library_tf32_ms"),
+            "ms_c128": r.get("ms_c128"), "ms_b1_c128": r.get("ms_b1_c128"),
+            "path_ms_c128": r.get("path_ms_c128"),
+            "bound_ms_c128": r.get("bound_ms_c128")})
     for k in kernels:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

@@ -1,9 +1,12 @@
-"""Probe ``getrf_inv``, ``potrf_inv``, ``extend_add_rows``,
-``syrk_gemm_batched`` and ``cholesky_small_batched`` on the card: where a
-launch's time goes, by timing copies of the kernel's source with parts cut
-out.
+"""Probe ``getrf_inv``, ``potrf_inv``, ``getrf_inv_c``, ``bmm_bf16x3``,
+``extend_add_rows``, ``syrk_gemm_batched`` and ``cholesky_small_batched``
+on the card: where a launch's time goes, by timing copies of the kernel's
+source with parts cut out.
 
-    python -m spfx_torch.bench.kernel_probe getrf|potrf [plan] [SOURCE ...]
+    python -m spfx_torch.bench.kernel_probe getrf|potrf|getrf_c [plan]
+        [SOURCE ...]
+    python -m spfx_torch.bench.kernel_probe bf16x3 [plan] [SOURCE ...]
+    python -m spfx_torch.bench.kernel_probe bf16x3 copy [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe extend [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe syrk [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe chol_small [SOURCE ...]
@@ -18,6 +21,26 @@ out.
   blocks instead (LU for getrf, Cholesky for potrf; mostly narrower than
   32): the first block of its largest call, that call, and all of its
   calls in one graph;
+- ``getrf_c``: the same for ``getrf_inv_c`` (csrc/getrf_inv_c.cu) in
+  complex64 and complex128, seeded complex blocks (``GETRF_C_CUTS``, the
+  cuts of ``GETRF_CUTS``); with ``plan``, on the complex64 48^3 LU plan's
+  own blocks (the unsymmetric magnetic Laplacian, ``magnetic_laplacian``),
+  in both types;
+- ``bf16x3``: device time of ``bmm_bf16x3``'s kernel at
+  ``BF16X3_SHAPES`` (the 48^3 plan's largest UT product and two common
+  ones), whole and with its loads, split, products or stores cut
+  (``BF16X3_CUTS``), beside full-float32 ``torch.bmm`` and the bound;
+  with ``plan``, at the 48^3 Cholesky plan's largest UT product and over
+  all of its products in one graph (``ut_product_shapes``, operands from
+  ``bmm_operands``). A SOURCE without the entry of today's kernel (the
+  parent's) is timed through its ``ANY_STRIDES`` entry;
+- ``bf16x3 copy``: the products that ``bmm_bf16x3`` copies into its
+  kernel's layout first, in one factorization and one device solve of the
+  48^3 Laplacian in f32 under ``matmul_precision="high"``, Cholesky and
+  LU (``copy_calls``: the walks' own views), all in one graph: through
+  ``matmul.bmm_bf16x3`` (one copy of each operand that does not fit,
+  then the kernel), through each SOURCE as it reads them (the parent's
+  any-strides kernel), and by full-float32 ``torch.bmm``;
 - ``extend``: device time of ``extend_add_rows`` in f32 at the 48^3
   Cholesky plan's largest call (over rotated copies of its slab and E
   that exceed the L2 cache), and of all of the plan's calls in one graph,
@@ -48,8 +71,10 @@ out.
 Each copy is the kernel's source under ``csrc/`` with text edits, built
 with nvcc (all copies at once) and loaded with ctypes; a cut copy's
 outputs are wrong, the point is the time each part holds a launch. The
-whole copy is first checked against the plain version (getrf, potrf:
-1e-4 f32, 1e-12 f64 of the largest plain output; chol_small the same,
+whole copy is first checked against the plain version (getrf, potrf,
+getrf_c: 1e-4 f32 and complex64, 1e-12 f64 and complex128 of the largest
+plain output; bf16x3: 3 k 2^-22 of sum |a||b| per entry, as
+chip_smoke.py's phase 3g; chol_small the same as getrf,
 and exact zeros above the diagonal; extend: 1e-6 of the
 slab's largest entry; syrk: 1e-5). Further SOURCE files (another version
 of the same kernel, say the parent commit's) are built, checked and timed
@@ -89,6 +114,30 @@ GETRF_CUTS = [
                                  ("kUinv = true", "kUinv = false"),
                                  ("kElim = true", "kElim = false")]),
 ]
+
+# the same for csrc/getrf_inv_c.cu
+GETRF_C_CUTS = [
+    ("whole", []),
+    ("no Linv", [("kLinvC = true", "kLinvC = false")]),
+    ("no Uinv", [("kUinvC = true", "kUinvC = false")]),
+    ("no inverses", [("kLinvC = true", "kLinvC = false"),
+                     ("kUinvC = true", "kUinvC = false")]),
+    ("staging and stores only", [("kLinvC = true", "kLinvC = false"),
+                                 ("kUinvC = true", "kUinvC = false"),
+                                 ("kElimC = true", "kElimC = false")]),
+]
+
+# the same for csrc/bmm_bf16x3.cu, its fast path
+BF16X3_CUTS = [
+    ("whole", []),
+    ("no products", [("kProducts = true", "kProducts = false")]),
+    ("no split", [("kSplit = true", "kSplit = false")]),
+    ("no stores", [("kStores = true", "kStores = false")]),
+    ("loads cut", [("kLoads = true", "kLoads = false")]),
+]
+# (batch, m, k, n): the 48^3 plan's largest UT product and two of its
+# common ones
+BF16X3_SHAPES = ((128, 132, 256, 260), (16, 144, 64, 64), (16, 64, 32, 64))
 
 # the same for csrc/potrf_inv.cu
 POTRF_CUTS = [
@@ -248,6 +297,18 @@ def getrf_inputs(B: int, dtype):
             torch.from_numpy(D).to(dev, dtype))
 
 
+def getrf_c_inputs(B: int, dtype):
+    """(wrel, D): seeded diagonally dominant complex (B, 32, 32) blocks,
+    both triangles filled, every block of full width."""
+    rng = np.random.default_rng(B)
+    D = rng.standard_normal((B, 32, 32)) + 1j * rng.standard_normal(
+        (B, 32, 32))
+    D += (np.abs(D).sum(axis=2)[..., None] + 1.0) * np.eye(32)[None]
+    dev = torch.device("cuda")
+    return (torch.full((B,), 32, dtype=torch.int32, device=dev),
+            torch.from_numpy(D).to(dev, dtype))
+
+
 def potrf_inputs(B: int, dtype):
     """(wrel, D): seeded SPD (B, 32, 32) blocks X X^T + 32 I with junk
     above the diagonal (never read), every block of full width."""
@@ -308,44 +369,119 @@ def plan_potrf_calls(ctx, dev):
     return out
 
 
-# kind: (source, cuts, outputs, plain version, seeded inputs, plan calls,
-# plan context)
-DIAG = {"getrf": ("getrf_inv.cu", GETRF_CUTS, 4, "getrf_inv_plain",
-                  getrf_inputs, plan_getrf_calls, "LU"),
-        "potrf": ("potrf_inv.cu", POTRF_CUTS, 2, "potrf_inv_plain",
-                  potrf_inputs, plan_potrf_calls, "Cholesky")}
+def unsym_laplacian(k: int):
+    """laplacian_3d(k) with every entry above the diagonal scaled by a
+    factor from U[0.25, 1] (numpy default_rng(0)): unsymmetric values on a
+    symmetric pattern, so swapped L and U sides would show."""
+    import numpy as np
+    import scipy.sparse as sp
+    from spfx_torch.io import generate
+    A = generate.laplacian_3d(k)
+    up = sp.triu(A, 1).tocoo()
+    up.data = up.data * np.random.default_rng(0).uniform(0.25, 1.0, up.nnz)
+    return sp.csc_matrix(sp.tril(A) + up)
+
+def magnetic_laplacian(k: int, unsym: bool = False):
+    """laplacian_3d(k) with each off-diagonal pair -1 / -1 made
+    -e^{i theta} above the diagonal and -e^{-i theta} below it, theta from
+    U[0, 2 pi) (numpy default_rng(0)): a Hermitian matrix with the
+    Laplacian's diagonal, still diagonally dominant, so positive definite.
+    With ``unsym``, every entry above the diagonal then scaled by
+    ``unsym_laplacian``'s factors from U[0.25, 1] (a fresh default_rng(0)):
+    complex unsymmetric values on the symmetric pattern."""
+    import numpy as np
+    import scipy.sparse as sp
+    from spfx_torch.io import generate
+    A = generate.laplacian_3d(k)
+    up = sp.triu(A, 1).tocoo()
+    theta = np.random.default_rng(0).uniform(0.0, 2 * np.pi, up.nnz)
+    vals = up.data * np.exp(1j * theta)
+    U = sp.coo_matrix((vals, (up.row, up.col)), shape=A.shape)
+    low = U.conj().T
+    if unsym:
+        U = sp.coo_matrix((vals * np.random.default_rng(0).uniform(
+            0.25, 1.0, up.nnz), (up.row, up.col)), shape=A.shape)
+    return sp.csc_matrix(sp.diags(A.diagonal().astype(np.complex128))
+                         + U + low)
+
+def ut_product_shapes(plan):
+    """(batch, m, k, n) of the product C = G H^T of every UT step: G the
+    (mp + ALIGN/kp)-row source superwindows, H the head windows."""
+    from spfx_torch.plan.schedule import ALIGN
+    return [(len(ub.kw), ub.mp + ALIGN // ub.kp, ub.kp, ub.tgt_cpos.shape[1])
+            for lp in plan.levels for ub in lp.updates
+            if getattr(ub, "head_start", None) is not None]
+
+def bmm_operands(shape, gen, dev):
+    """Seeded float32 operands of one UT product: G (batch, m, k) and the
+    transposed view H^T (batch, k, n) that the step passes, values spread
+    over 2^20 in scale by row."""
+    import torch
+    batch, m, k, n = shape
+    G = torch.randn(batch, m, k, generator=gen, device=dev)
+    G = G * torch.exp2(torch.randint(-10, 10, (batch, m, 1), generator=gen,
+                                     device=dev).float())
+    H = torch.randn(batch, n, k, generator=gen, device=dev)
+    return G, H.transpose(1, 2)
+
+
+def plan_context(name: str, dev):
+    """The 48^3 plan context of a ``diag`` kind: Cholesky or LU of
+    laplacian_3d(48) in f32, or the complex64 LU of the unsymmetric
+    magnetic Laplacian (``magnetic_laplacian``), as chip_smoke.py's phase
+    3f builds it."""
+    import spfx_torch
+    from spfx_torch import Config
+    from spfx_torch.io import generate
+    if name == "LU_c64":
+        return spfx_torch.LU(magnetic_laplacian(48, unsym=True),
+                             Config(dtype="complex64"), device=dev)
+    return getattr(spfx_torch, name)(generate.laplacian_3d(48), device=dev)
+
+
+# kind: (source, entry point prefix, cuts, outputs, plain version, seeded
+# inputs, plan calls, plan context, (dtype, entry suffix) pairs)
+REAL = ((torch.float32, "f32"), (torch.float64, "f64"))
+COMPLEX = ((torch.complex64, "c64"), (torch.complex128, "c128"))
+DIAG = {"getrf": ("getrf_inv.cu", "spfx_getrf_inv_", GETRF_CUTS, 4,
+                  "getrf_inv_plain", getrf_inputs, plan_getrf_calls, "LU",
+                  REAL),
+        "potrf": ("potrf_inv.cu", "spfx_potrf_inv_", POTRF_CUTS, 2,
+                  "potrf_inv_plain", potrf_inputs, plan_potrf_calls,
+                  "Cholesky", REAL),
+        "getrf_c": ("getrf_inv_c.cu", "spfx_getrf_inv_", GETRF_C_CUTS, 4,
+                    "getrf_inv_plain", getrf_c_inputs, plan_getrf_calls,
+                    "LU_c64", COMPLEX)}
 
 
 def diag(kind: str, extra=(), plan=False) -> bool:
-    """The ``getrf`` and ``potrf`` modes (see the module docstring)."""
-    src, cuts, nout, plain_name, make_inputs, plan_calls, ctx_name = \
-        DIAG[kind]
+    """The ``getrf``, ``potrf`` and ``getrf_c`` modes (see the module
+    docstring)."""
+    src, prefix, cuts, nout, plain_name, make_inputs, plan_calls, ctx_name, \
+        types = DIAG[kind]
     plain = getattr(panel, plain_name)
     dev = torch.device("cuda")
     if plan:
-        import spfx_torch
-        from spfx_torch.io import generate
-        calls = plan_calls(getattr(spfx_torch, ctx_name)(
-            generate.laplacian_3d(48), device=dev), dev)
+        calls = plan_calls(plan_context(ctx_name, dev), dev)
         wrel, D = max(calls, key=lambda c: c[0].shape[0])
-        cases = {torch.float32: [
+        cases = {td: [
             (f"48^3 plan's largest call, first block (w {int(wrel[0])})",
              [(wrel[:1].contiguous(), D[:1].contiguous())]),
             (f"48^3 plan's largest call (B {wrel.shape[0]})", [(wrel, D)]),
-            (f"48^3 plan's {len(calls)} calls", calls)]}
+            (f"48^3 plan's {len(calls)} calls", calls)]
+            for td, _ in types}
     else:
         cases = {td: [(f"B {B}", [make_inputs(B, td)])
                       for B in GETRF_BATCHES]
-                 for td in (torch.float32, torch.float64)}
+                 for td, _ in types}
     libs = build(src, cuts, extra)
-    name_of = f"spfx_{src[:-3]}_"
+    sigs = _cuda._SIGNATURES[src[:-3]]
     ok = True
-    for td, tcases in cases.items():
-        t = "f32" if td == torch.float32 else "f64"
-        fns = [(name, entry(lib, [name_of + t],
-                            _cuda._SIGNATURES[src[:-3]][name_of + t]))
+    for td, t in types:
+        fns = [(name, entry(lib, [prefix + t], sigs[prefix + t]))
                for name, lib in libs]
-        for label, calls in tcases:
+        single = td in (torch.float32, torch.complex64)
+        for label, calls in cases[td]:
             calls = [(w, d.to(td)) for w, d in calls]
             outs = [[torch.empty_like(d) for _ in range(nout)]
                     for _, d in calls]
@@ -368,7 +504,7 @@ def diag(kind: str, extra=(), plan=False) -> bool:
                                     1.0)
                         e = max(float((x - r).abs().max())
                                 for x, r in zip(o, refs))
-                        lim = (1e-4 if td == torch.float32 else 1e-12) * scale
+                        lim = (1e-4 if single else 1e-12) * scale
                         ok &= e <= lim
                         err, tol = max(err, e), max(tol, lim)
                     line += (f"err {err:.3e} tol {tol:.3e} "
@@ -380,6 +516,191 @@ def diag(kind: str, extra=(), plan=False) -> bool:
                     line += (f"{time_ms(run, reps=1, rounds=3):.3f} ms in "
                              "one graph")
                 print(line, flush=True)
+    return ok
+
+
+# the entry point of bmm_bf16x3.cu before its redesign, whose kernel read
+# A and B at any strides: (A, A's 3 strides, B, B's 3 strides, C, batch,
+# m, n, k, stream)
+ANY_STRIDES = ("spfx_bmm_bf16x3_f32",
+               [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+               + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def bf16x3_call(lib, name: str, G, Ht, C):
+    """A callable that computes C = bf16x3(G @ Ht) with ``lib``: its entry
+    at matmul.fast_tile's tile where it has it (G and Ht must then fit as
+    they lie), else an older source's ``ANY_STRIDES`` entry."""
+    from spfx_torch.kernels import matmul
+    batch, m, k = G.shape
+    n = Ht.shape[2]
+    if hasattr(lib, "spfx_bmm_bf16x3_fast_f32"):
+        if matmul.path(G, Ht) != "fast":
+            raise ValueError("the operands are not read as they lie")
+        fn = entry(lib, ["spfx_bmm_bf16x3_fast_f32"],
+                   _cuda._SIGNATURES["bmm_bf16x3"]["spfx_bmm_bf16x3_fast_f32"])
+        args = (G.data_ptr(), G.stride(0), G.stride(1), Ht.data_ptr(),
+                Ht.stride(0), Ht.stride(2), C.data_ptr(), batch, m, n, k,
+                *matmul.fast_tile(batch, m, n))
+    else:
+        fn = entry(lib, [ANY_STRIDES[0]], ANY_STRIDES[1])
+        args = (G.data_ptr(), *G.stride(), Ht.data_ptr(), *Ht.stride(),
+                C.data_ptr(), batch, m, n, k)
+
+    def call():
+        rc = fn(*args, stream())
+        if rc:
+            raise RuntimeError(f"{name!r}: CUDA error {rc}")
+    return call
+
+
+def bf16x3_bound_ms(shapes) -> float:
+    """The larger of the products' bytes (operands read once, C written
+    once) over the memory rate and their 3 x 2 m n k operations over the
+    bf16 tensor-core peak (989 TFLOP/s, H100 SXM data sheet)."""
+    nbytes = sum(4.0 * b * (m * k + k * n + m * n) for b, m, k, n in shapes)
+    ops = sum(6.0 * b * m * n * k for b, m, k, n in shapes)
+    return max(nbytes / 3.35e12, ops / 989e12) * 1e3
+
+
+def bf16x3(extra=(), plan=False) -> bool:
+    """The ``bf16x3`` mode (see the module docstring)."""
+    from spfx_torch.kernels import matmul
+    dev = torch.device("cuda")
+    if plan:
+        shapes = ut_product_shapes(plan_context("Cholesky", dev).plan)
+        big = max(shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
+        cases = [(f"48^3 plan's largest product {big}", [big]),
+                 (f"48^3 plan's {len(shapes)} products", shapes)]
+    else:
+        cases = [(f"{s}", [s]) for s in BF16X3_SHAPES]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    libs = build("bmm_bf16x3.cu", BF16X3_CUTS, extra)
+    ok = True
+    for label, shapes in cases:
+        ops = [bmm_operands(s, gen, dev) for s in shapes]
+        outs = [G.new_empty((G.shape[0], G.shape[1], Ht.shape[2]))
+                for G, Ht in ops]
+        print(f"bf16x3 {label}: bound {bf16x3_bound_ms(shapes):.4f} ms",
+              flush=True)
+        for k, (name, lib) in enumerate(libs):
+            calls = [bf16x3_call(lib, name, G, Ht, C)
+                     for (G, Ht), C in zip(ops, outs)]
+
+            def run(calls=calls):
+                for c in calls:
+                    c()
+            line = f"bf16x3 {label} {name}: "
+            if name == "whole" or k >= len(BF16X3_CUTS):
+                run()
+                torch.cuda.synchronize()
+                good = True
+                for (G, Ht), C, s in zip(ops, outs, shapes):
+                    ref = matmul.bmm_bf16x3_plain(G, Ht)
+                    S = torch.bmm(G.abs().double(), Ht.abs().double())
+                    d = (C - ref).abs().double()
+                    good &= bool((d <= 3 * s[2] * 2.0 ** -22 * S).all())
+                ok &= good
+                line += f"{'OK' if good else 'FAIL'}, "
+            if len(calls) == 1:
+                line += f"{time_ms(run, reps=20):.4f} ms"
+            else:
+                line += f"{time_ms(run, reps=1, rounds=3):.3f} ms in one graph"
+            print(line, flush=True)
+
+        def library():
+            for (G, Ht), C in zip(ops, outs):
+                torch.bmm(G, Ht, out=C)
+        t = (time_ms(library, reps=20) if len(shapes) == 1
+             else time_ms(library, reps=1, rounds=3))
+        print(f"bf16x3 {label} torch.bmm, full float32: {t:.4f} ms",
+              flush=True)
+        del ops, outs
+        torch.cuda.empty_cache()
+    return ok
+
+
+def copy_calls(kind: str, dev):
+    """The (A, B) operand pairs of every product that bmm_bf16x3 copies
+    first (``matmul.path`` "copy") in one factorization and one device
+    solve of laplacian_3d(48) in f32 under matmul_precision="high"
+    (``kind`` "Cholesky" or "LU"): the views the walks pass, recorded
+    while the mega engine captures its graphs, so each product once."""
+    import spfx_torch
+    from spfx_torch import Config, synth_rhs
+    from spfx_torch.io import generate
+    from spfx_torch.kernels import matmul
+    got, orig = [], matmul.bmm_bf16x3
+
+    def record(a, b):
+        if torch.cuda.is_current_stream_capturing() \
+                and matmul.path(a, b) == "copy":
+            got.append((a, b))
+        return orig(a, b)
+    A = generate.laplacian_3d(48)
+    matmul.bmm_bf16x3 = record
+    try:
+        f = getattr(spfx_torch, kind.lower())(
+            A, Config(matmul_precision="high", solve_backend="device"),
+            device=dev)
+        f.solve(synth_rhs(A))
+    finally:
+        matmul.bmm_bf16x3 = orig
+    return got
+
+
+def bf16x3_copy(extra=()) -> bool:
+    """The ``bf16x3 copy`` mode (see the module docstring)."""
+    from spfx_torch.kernels import matmul
+    dev = torch.device("cuda")
+    libs = build("bmm_bf16x3.cu", [], extra)
+    ok = True
+    for kind in ("Cholesky", "LU"):
+        calls = copy_calls(kind, dev)
+        ops = 6.0 * sum(a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+                        for a, b in calls)
+        tally = {}
+        for a, b in calls:
+            w = {(False, True): "A", (True, False): "B"}.get(
+                (matmul.fits(a), matmul.fits(b.transpose(1, 2))), "both")
+            tally[w] = tally.get(w, 0) + 1
+        print(f"bf16x3 copy {kind}: {len(calls)} products copied first, "
+              f"{ops / 1e9:.2f} GFLOP of bf16 passes; operands copied: "
+              f"{tally}", flush=True)
+        outs = [a.new_empty((a.shape[0], a.shape[1], b.shape[2]))
+                for a, b in calls]
+
+        def into(call, c):
+            call()
+            return c
+        runs = [("one copy + the kernel (matmul.bmm_bf16x3)",
+                 [lambda a=a, b=b: matmul.bmm_bf16x3(a, b)
+                  for a, b in calls])]
+        runs += [(name, [lambda f=bf16x3_call(lib, name, a, b, c), c=c:
+                         into(f, c) for (a, b), c in zip(calls, outs)])
+                 for name, lib in libs]
+        runs.append(("torch.bmm, full float32",
+                     [lambda a=a, b=b, c=c: torch.bmm(a, b, out=c)
+                      for (a, b), c in zip(calls, outs)]))
+        for name, fns in runs:
+            def run(fns=fns):
+                return [fn() for fn in fns]
+            line = f"bf16x3 copy {kind} {name}: "
+            if not name.startswith("torch"):
+                good = True
+                for (a, b), c in zip(calls, run()):
+                    ref = matmul.bmm_bf16x3_plain(a, b)
+                    S = torch.bmm(a.abs().double(), b.abs().double())
+                    good &= bool(((c - ref).abs().double()
+                                  <= 3 * a.shape[2] * 2.0 ** -22 * S).all())
+                ok &= good
+                line += f"{'OK' if good else 'FAIL'}, "
+            print(line + f"{time_ms(run, reps=1, rounds=5):.3f} ms in one "
+                  "graph", flush=True)
+        del calls, outs
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -717,6 +1038,11 @@ def main(argv) -> int:
         if mode in DIAG:
             plan = rest[:1] == ["plan"]
             ok = diag(mode, rest[1:] if plan else rest, plan=plan)
+        elif mode == "bf16x3" and rest[:1] == ["copy"]:
+            ok = bf16x3_copy(rest[1:])
+        elif mode == "bf16x3":
+            plan = rest[:1] == ["plan"]
+            ok = bf16x3(rest[1:] if plan else rest, plan=plan)
         else:
             ok = {"extend": extend, "syrk": syrk, "chol_small": chol_small,
                   "div": div}[mode](rest)

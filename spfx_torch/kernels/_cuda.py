@@ -78,15 +78,16 @@ _SIGNATURES = {
                                                         _c_int, _vp]
                    for t in ("f32", "f64")},
     # complex diagonal blocks, the signatures of potrf_inv and getrf_inv
-    "diag_block_c": {
-        **{f"spfx_potrf_inv_{t}": [_vp, _vp, _vp, _vp, _c_int, _c_int, _vp]
-           for t in ("c64", "c128")},
-        **{f"spfx_getrf_inv_{t}": [_vp] * 6 + [_c_int, _c_int, _vp]
-           for t in ("c64", "c128")}},
-    # (A, A's 3 strides, B, B's 3 strides, C, batch, m, n, k, stream)
-    "bmm_bf16x3": {"spfx_bmm_bf16x3_f32": [_vp, _c_ll, _c_ll, _c_ll, _vp,
-                                           _c_ll, _c_ll, _c_ll, _vp, _c_int,
-                                           _c_int, _c_int, _c_int, _vp]},
+    "diag_block_c": {f"spfx_potrf_inv_{t}": [_vp, _vp, _vp, _vp, _c_int,
+                                             _c_int, _vp]
+                     for t in ("c64", "c128")},
+    "getrf_inv_c": {f"spfx_getrf_inv_{t}": [_vp] * 6 + [_c_int, _c_int, _vp]
+                    for t in ("c64", "c128")},
+    # (A, A's batch and row strides, B, B's batch and column strides, C,
+    # batch, m, n, k, tile_m, tile_n, stream)
+    "bmm_bf16x3": {"spfx_bmm_bf16x3_fast_f32": [_vp, _c_ll, _c_ll, _vp,
+                                                _c_ll, _c_ll, _vp]
+                   + [_c_int] * 6 + [_vp]},
 }
 
 _libs: dict = {}

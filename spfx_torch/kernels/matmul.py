@@ -20,8 +20,15 @@ other modes map onto torch's float32 matmul setting (``mega._PRECISION``):
 A CPU tensor takes the plain version ``bmm_bf16x3_plain`` (the same split
 in torch, three float32 ``bmm``s, also the kernel's oracle); a CUDA
 tensor launches the kernel of csrc/bmm_bf16x3.cu or raises. The kernel
-reads the operands at their own strides, so the transposed views the
-walks pass need no copy.
+reads each operand with k unit-stride, 16-byte aligned, every stride that
+is used a multiple of 4 values (``fits``): the update steps' C = G H^T
+(G a fresh gather, H^T a transposed view of a contiguous H) as they lie.
+Any other operand (the panel path's transposed and offset views, the
+solves') is first copied once into that layout (``fast_layout``); ``path``
+says which of the two a call takes, from shapes, strides and alignment
+alone. The kernel's tile is ``fast_tile``'s, fitted to m and n, and its
+work (``fast_work``) about the tensor cores' grain: m up to 16, n up to
+a warp's 8 or 16 columns, k up to 16.
 """
 
 from __future__ import annotations
@@ -90,6 +97,76 @@ def _check(a, b) -> None:
         raise ValueError(f"bmm_bf16x3: unsupported device {a.device}")
 
 
+SMS = 132                   # the H100 SXM's streaming multiprocessors
+MAX_TILE_M = 160            # the kernel's tallest row tile
+
+
+def _used(stride: int, size: int) -> bool:
+    """Whether a stride is a multiple of 4 values where the kernel uses it
+    (a dimension of size 1 never steps)."""
+    return size <= 1 or stride % 4 == 0
+
+
+def fits(x) -> bool:
+    """Whether the kernel reads x (batch, r, k) as it lies: k unit-stride
+    (or at most one value), 16-byte aligned, the batch and row strides
+    multiples of 4 values where they step."""
+    batch, r, k = x.shape
+    return (x.stride(2) == 1 or k <= 1) and x.data_ptr() % 16 == 0 \
+        and _used(x.stride(0), batch) and _used(x.stride(1), r)
+
+
+def fast_layout(x):
+    """x (batch, r, k) as the kernel reads it: x itself where it ``fits``,
+    else one copy with k unit-stride and each row padded to a multiple of
+    4 values."""
+    if fits(x):
+        return x
+    batch, r, k = x.shape
+    out = x.new_empty((batch, r, -(-k // 4) * 4))[:, :, :k]
+    out.copy_(x)
+    return out
+
+
+def path(a, b) -> str:
+    """"fast" where a (batch, m, k) and b (batch, k, n) are read as they
+    lie, "copy" where one of them is copied first (see the module
+    docstring)."""
+    return "fast" if fits(a) and fits(b.transpose(1, 2)) else "copy"
+
+
+def fast_tile(batch: int, m: int, n: int) -> tuple:
+    """(tile_m, tile_n) of the kernel. tile_m: m rounded up to 16 rows
+    (one template per multiple of 16 up to 160); a taller m takes the
+    tallest multiple of 16 up to 160 whose row tiles pad it within 10% of
+    m rounded up to 16. tile_n: 64 columns where that still gives every SM
+    a block, else 32.
+
+    A pure function of the shape, so that the CPU tests hold the choice:
+    ``SMS`` is the H100 SXM's count, the port's one target card, not read
+    from the device. The 16-row grain is what the UT products need: a
+    32-row grain would pad m = 136 to 160 rows (18%), where 16 pads it to
+    144 (6%)."""
+    m16 = max(-(-m // 16) * 16, 16)
+    tm = m16 if m16 <= MAX_TILE_M else max(
+        t for t in range(16, MAX_TILE_M + 1, 16)
+        if -(-m // t) * t <= 1.1 * m16)
+    blocks = batch * -(-m // tm) * -(-n // 64)
+    return tm, 64 if blocks >= SMS else 32
+
+
+def fast_work(batch: int, m: int, n: int, k: int) -> int:
+    """Multiply-adds the kernel's tensor-core fragments do, per pass,
+    walked as the kernel walks them: every row tile whole; in each column
+    tile, the columns of the warps (8 or 16 columns each) that hold any
+    column below n; k rounded up to 16."""
+    tm, tn = fast_tile(batch, m, n)
+    per_warp = tn // 4
+    cols = sum(-(-min(tn, n - c) // per_warp) * per_warp
+               for c in range(0, n, tn))
+    return batch * -(-m // tm) * tm * cols * -(-k // 16) * 16
+
+
 def bmm_bf16x3(a, b):
     """(batch, m, n) = a (batch, m, k) @ b (batch, k, n), float32, as three
     bf16 passes (see module docstring)."""
@@ -99,10 +176,14 @@ def bmm_bf16x3(a, b):
     batch, m, k = a.shape
     n = b.shape[2]
     c = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
-    rc = _cuda.lib("bmm_bf16x3").spfx_bmm_bf16x3_f32(
-        a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(), c.data_ptr(),
-        batch, m, n, k, _cuda.stream_ptr(a.device))
+    if not (batch and m and n):
+        return c
+    a = fast_layout(a)
+    b = fast_layout(b.transpose(1, 2)).transpose(1, 2)
+    rc = _cuda.lib("bmm_bf16x3").spfx_bmm_bf16x3_fast_f32(
+        a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(), b.stride(0),
+        b.stride(2), c.data_ptr(), batch, m, n, k, *fast_tile(batch, m, n),
+        _cuda.stream_ptr(a.device))
     _cuda.check(rc, "bmm_bf16x3")
-    if batch and m and n:
-        _cuda.count("bmm_bf16x3")
+    _cuda.count("bmm_bf16x3")
     return c

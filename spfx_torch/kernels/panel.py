@@ -30,8 +30,8 @@ anything else.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 CUDA kernel (csrc/potrf_inv.cu, csrc/getrf_inv.cu; complex blocks
-csrc/diag_block_c.cu, counted as ``potrf_inv_c`` / ``getrf_inv_c``) or
-raises.
+csrc/diag_block_c.cu and csrc/getrf_inv_c.cu, counted as ``potrf_inv_c``
+/ ``getrf_inv_c``) or raises.
 """
 
 from __future__ import annotations
@@ -66,13 +66,17 @@ def _check(name: str, wrel, D) -> None:
         raise ValueError(f"{name}: unsupported device {D.device}")
 
 
+# kernel name -> the library of its complex form
+_COMPLEX_LIB = {"potrf_inv": "diag_block_c", "getrf_inv": "getrf_inv_c"}
+
+
 def _launch(name: str, wrel, D, outs) -> None:
     """Launch kernel ``name`` on CUDA tensors: inputs (wrel, D), outputs
-    ``outs`` of D's shape; library ``name`` for real blocks, diag_block_c
-    (counted as ``name``_c) for complex ones."""
+    ``outs`` of D's shape; library ``name`` for real blocks, the one
+    ``_COMPLEX_LIB`` names (counted as ``name``_c) for complex ones."""
     B, nb = D.shape[0], D.shape[1]
     cplx = D.is_complex()
-    lib = _cuda.lib("diag_block_c" if cplx else name)
+    lib = _cuda.lib(_COMPLEX_LIB[name] if cplx else name)
     fn = getattr(lib, f"spfx_{name}_{_SUFFIX[D.dtype]}")
     rc = fn(wrel.data_ptr(), D.data_ptr(), *(o.data_ptr() for o in outs),
             B, nb, _cuda.stream_ptr(D.device))

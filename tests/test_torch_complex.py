@@ -249,6 +249,34 @@ def test_plain_diag_blocks_match_lax(w):
                 1.0, np.abs(r).max())
 
 
+@pytest.mark.parametrize("scale", [2.0 ** 60, 2.0 ** -60],
+                         ids=["2^60", "2^-60"])
+@pytest.mark.parametrize("w", [1, 9, 32])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plain_diag_blocks_match_lax_scaled(dtype, w, scale):
+    """The plain diagonal blocks on blocks scaled by 2^60 and 2^-60, where
+    the square of a complex64 pivot's modulus (2^+-120 times the block's
+    spread) leaves the type's range, against lax.linalg on the same blocks:
+    each output within the tolerance of its own largest entry."""
+    rng = np.random.default_rng(60 + w)
+    nb = 32
+    X = rng.standard_normal((nb, nb)) + 1j * rng.standard_normal((nb, nb))
+    H = X @ X.conj().T + nb * np.eye(nb)
+    Dp = (np.tril(H) + np.triu(np.full((nb, nb), 1e3 + 1e3j), 1)) * scale
+    Du = (rng.standard_normal((nb, nb)) + 1j * rng.standard_normal((nb, nb)))
+    Du = (Du + np.diag(np.abs(Du).sum(1) + 1)) * scale
+    wrel = torch.tensor([w], dtype=torch.int32)
+    td = getattr(torch, dtype)
+    for plain, ref, D in ((panel.potrf_inv_plain, _jax_potrf_inv, Dp),
+                          (panel.getrf_inv_plain, _jax_getrf_inv, Du)):
+        got = plain(wrel, torch.tensor(D[None], dtype=td))
+        want = ref(w, D.astype(dtype))
+        for g, r in zip(got, want):
+            g = g[0].numpy()
+            assert np.isfinite(g).all()
+            assert np.abs(g - r).max() <= TOL[dtype] * np.abs(r).max()
+
+
 @pytest.mark.parametrize("lu", [False, True], ids=["chol", "lu"])
 def test_interop_and_checkpoints(tmp_path, lu):
     """A JAX complex factor carried into the port solves there; a port

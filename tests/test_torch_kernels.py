@@ -182,7 +182,9 @@ def test_every_source_is_bound():
     ("syrk_gemm.cu", kernel_probe.SYRK_CUTS),
     ("potrf_inv.cu", kernel_probe.POTRF_CUTS),
     ("extend_add.cu", kernel_probe.EXTEND_CUTS),
-    ("chol_small.cu", kernel_probe.CHOL_SMALL_CUTS)])
+    ("chol_small.cu", kernel_probe.CHOL_SMALL_CUTS),
+    ("getrf_inv_c.cu", kernel_probe.GETRF_C_CUTS),
+    ("bmm_bf16x3.cu", kernel_probe.BF16X3_CUTS)])
 def test_probe_cuts_apply(source, cuts):
     """Every edit of every cut of kernel_probe finds its text exactly once
     in the files it edits (the source and the csrc headers), so that a
@@ -212,6 +214,27 @@ def test_probe_declared_arity(fn):
         assert kernel_probe.declared_arity(old, fn) == n - 1
     with pytest.raises(ValueError):
         kernel_probe.declared_arity(text, fn + "_missing")
+
+
+@pytest.mark.parametrize("lib,fn", [
+    ("bmm_bf16x3", "spfx_bmm_bf16x3_fast_f32"),
+    ("getrf_inv_c", "spfx_getrf_inv_c64"),
+    ("getrf_inv_c", "spfx_getrf_inv_c128")])
+def test_probe_declared_arity_new_entries(lib, fn):
+    """The probe reads the parameters of the entries it calls by name in a
+    current or a parent source (bmm_bf16x3's and getrf_inv_c's) as _cuda
+    binds them."""
+    text = open(os.path.join(_cuda._CSRC, f"{lib}.cu")).read()
+    assert kernel_probe.declared_arity(text, fn) == len(
+        _cuda._SIGNATURES[lib][fn])
+
+
+@pytest.mark.parametrize("name", sorted(panel._COMPLEX_LIB))
+def test_complex_blocks_have_their_library(name):
+    """Complex blocks of ``name`` launch from a bound library that exports
+    both complex entries."""
+    sigs = _cuda._SIGNATURES[panel._COMPLEX_LIB[name]]
+    assert {f"spfx_{name}_c64", f"spfx_{name}_c128"} <= set(sigs)
 
 
 # --------------------------------------------------------------------------

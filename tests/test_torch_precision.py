@@ -152,6 +152,116 @@ def test_bmm_dispatch():
         matmul.bmm_bf16x3(a, b[:, :5])
 
 
+# (m, k) of the 48^3 plan's UT products, each class once
+UT_CLASSES = ((64, 32), (144, 64), (160, 32), (136, 128), (48, 64),
+              (132, 256), (40, 128), (36, 256))
+
+
+def _ut_operands(batch, m, k, n):
+    """A UT product's operands as the update step passes them: G a fresh
+    (batch, m, k) tensor, H^T the transposed view of a fresh (batch, n,
+    k) H."""
+    return (torch.zeros(batch, m, k),
+            torch.zeros(batch, n, k).transpose(1, 2))
+
+
+@pytest.mark.parametrize("mk", UT_CLASSES, ids=str)
+@pytest.mark.parametrize("n", [12, 64, 80, 260, 288])
+def test_ut_products_take_the_fast_path(mk, n):
+    """Every UT product class's G and H^T are read as they lie."""
+    assert matmul.path(*_ut_operands(16, *mk, n)) == "fast"
+
+
+def _transposed_a():
+    G, Ht = _ut_operands(4, 64, 32, 64)
+    return G.transpose(1, 2).contiguous().transpose(1, 2), Ht
+
+
+def _offset_a():
+    G, Ht = _ut_operands(4, 64, 32, 64)
+    return torch.zeros(G.numel() + 1)[1:].view(G.shape), Ht
+
+
+def _k_strided_b():
+    G, Ht = _ut_operands(4, 64, 32, 64)
+    return G, Ht.contiguous()
+
+
+def _odd_row_stride():
+    G, Ht = _ut_operands(4, 64, 34, 64)
+    return G[:, :, :33], Ht[:, :33, :]
+
+
+OTHER_VIEWS = pytest.mark.parametrize(
+    "make", [_transposed_a, _offset_a, _k_strided_b, _odd_row_stride],
+    ids=["transposed A", "A offset by one value", "B with k-stride != 1",
+         "odd row strides"])
+
+
+@OTHER_VIEWS
+def test_other_views_are_copied_first(make):
+    """A transposed A, a view one value off its allocation, a B whose
+    k-stride is not 1 and rows whose stride is not a multiple of 4 values
+    are copied before the kernel reads them; the choice reads shapes,
+    strides and alignment alone, so it is the same on the CPU and on the
+    card."""
+    assert matmul.path(*make()) == "copy"
+
+
+@OTHER_VIEWS
+def test_one_copy_brings_a_view_to_the_kernels_layout(make):
+    """matmul.fast_layout: an operand that fits is passed as it lies, any
+    other is copied once, k unit-stride and rows padded to 4 values, and
+    then the pair is read as it lies, with the same values."""
+    a, b = make()
+    gen = torch.Generator().manual_seed(15)
+    a.copy_(torch.randn(a.shape, generator=gen))
+    b.copy_(torch.randn(b.shape, generator=gen))
+    fa = matmul.fast_layout(a)
+    fb = matmul.fast_layout(b.transpose(1, 2)).transpose(1, 2)
+    assert matmul.path(fa, fb) == "fast"
+    assert torch.equal(fa, a) and torch.equal(fb, b)
+    assert (fa.data_ptr() == a.data_ptr()) == matmul.fits(a)
+    assert (fb.data_ptr() == b.data_ptr()) == matmul.fits(b.transpose(1, 2))
+
+
+@pytest.mark.parametrize("batch", [1, 16, 128, 1024])
+@pytest.mark.parametrize("mk", UT_CLASSES, ids=str)
+@pytest.mark.parametrize("n", [12, 64, 80, 260, 288])
+def test_fast_tile_fits_the_product(batch, mk, n):
+    """The kernel's tile at every UT class, n and batch: one row tile of
+    m rounded up to 16; the work within a warp's columns of the tensor
+    cores' grain (m and n up to 16 and 8, k up to 16), and under 15% above
+    m n k wherever that grain allows it (m >= 48 and n >= 64: every class
+    but the two narrowest, at all but the thinnest n); the 64 x 64 tiles
+    of the earlier any-strides kernel padded the largest product (132 x
+    260) by 79%."""
+    m, k = mk
+    tm, tn = matmul.fast_tile(batch, m, n)
+    assert tm == -(-m // 16) * 16 and tn in (32, 64)
+    work = matmul.fast_work(batch, m, n, k)
+    grain = batch * tm * -(-n // 8) * 8 * -(-k // 16) * 16
+    assert grain <= work <= grain + batch * tm * (tn // 4 - 8) * k
+    if m >= 48 and n >= 64:
+        assert work / (batch * m * n * k) - 1 < 0.15
+
+
+@pytest.mark.parametrize("m", [0, 1])
+def test_fast_tile_of_empty_and_single_rows(m):
+    """A product with no rows (the blocked panel path's last column block
+    leaves M[:, cp:] empty) or one row still has a tile of one fragment."""
+    assert matmul.fast_tile(3, m, 5) == (16, 32)
+
+
+@pytest.mark.parametrize("m", [161, 200, 300, 1000])
+def test_fast_tile_of_tall_products(m):
+    """Taller than one tile: row tiles of one multiple of 16 up to 160,
+    padding m within 10% of m rounded up to 16."""
+    tm, _ = matmul.fast_tile(4, m, 64)
+    assert tm % 16 == 0 and tm <= matmul.MAX_TILE_M
+    assert -(-m // tm) * tm <= 1.1 * (-(-m // 16) * 16)
+
+
 @pytest.mark.parametrize("name", ["high", "highest", "default"])
 def test_precision_restores_torch_state(name):
     """The walks switch torch's float32 matmul mode and the product mode
