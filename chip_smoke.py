@@ -7,7 +7,7 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
-2. build: the CUDA kernels from spfx_torch/kernels/csrc (ten sources,
+2. build: the CUDA kernels from spfx_torch/kernels/csrc (eleven sources,
    one nvcc each, started together), timed;
 3. kernels: every window_gather2 and potrf_inv call of the 48^3 f32
    Cholesky plan (the starts of its UT buckets, the 32x32 diagonal blocks
@@ -47,7 +47,7 @@ non-zero):
    for bit the aligned ones' factors; a negative pivot's NaN where the
    plain version has them; times against torch.linalg.cholesky_ex at
    (65,536, 32);
-3f. potrf_inv_c and getrf_inv_c (csrc/diag_block_c.cu) at every
+3f. potrf_inv_c (csrc/potrf_inv_c.cu) and getrf_inv_c at every
    diagonal-block call of the complex64 48^3 plans (the magnetic
    Laplacian, ``magnetic_laplacian``, and its unsymmetric variant, on the
    48^3 analysis), complex64 and complex128, against the plain versions,
@@ -55,8 +55,8 @@ non-zero):
    widths 0, 1, 7, 8, 9, 31 and 32 in one call and blocks scaled by
    2^40, 2^70 and 2^-70, held row by row and column by column; times of
    kernel, plain version and library calls at the largest call, and their
-   bounds; getrf_inv_c (csrc/getrf_inv_c.cu) also at B = 1 (the plan's
-   widest block) and in complex128 at the same calls;
+   bounds; both kernels also at B = 1 (the plan's widest block) and in
+   complex128 at the same calls (getrf_inv_c: csrc/getrf_inv_c.cu);
 3g. bmm_bf16x3 (csrc/bmm_bf16x3.cu) at the product shape of every UT step
    of the 48^3 f32 plans, each read as it lies, and at a transposed and
    an unaligned operand, each copied into the kernel's layout first,
@@ -129,6 +129,14 @@ non-zero):
 6g. the same in complex128 on the magnetic Laplacians under the default
    config and phase 4d's three (within 1e-10), and matmul_precision="high"
    in f32 (within 1e-4: both sides bf16x3, summed in other orders);
+6h. window_gather2 and window_gather at windows that are not a multiple of
+   1024 elements (1,280, 1,536, and 1,027 or 1,025, no whole number of
+   16-byte vectors), every dtype, a dead window in each set, bit for bit
+   against the plain versions; then the two configs of the JAX package's
+   tests whose plans build such windows (update_tile=16, update_small=8;
+   ordering="nd", class_min=8, stride_min=0), both kinds, f64 and f32,
+   card against CPU (within 1e-10 and 1e-4), each plan checked to hold
+   such a window;
 6e. the surfaces at 12^3: the CLI (both kinds, factors saved), the saved
    factors loaded onto the card and solved (host and device solve), and
    the profile scope's trace; the CLI on complex .mtx files (complex64,
@@ -314,6 +322,46 @@ def check_gathers(plan, dtype: str, dev, gen):
             fail(f"window_gather2 {dtype} with an empty side differs")
     torch.cuda.synchronize()
     return L, calls, {"window_gather2": err2, "window_gather": err1}
+
+
+# the configs of the JAX package's tests whose plans build UT source
+# windows that are not a multiple of 1024 elements ((mp + 1024/kp) kp with
+# mp kp not a multiple of 1024): tests/test_mega.py's
+# test_tiled_tall_task_tiles and tests/test_cholesky.py's
+# test_class_min_coarse_classes
+ODD_WINDOW_CONFIGS = (("tall tiles", dict(update_tile=16, update_small=8)),
+                      ("fine classes", dict(ordering="nd", class_min=8,
+                                            stride_min=0)))
+# (win_a, win_b) by dtype: 1,280 and 1,536 (the plans' windows), then a
+# length that is no whole number of 16-byte vectors beside 1,280
+ODD_WINDOWS = {"float32": ((1280, 1536), (1027, 1280)),
+               "float64": ((1280, 1536), (1025, 1280)),
+               "complex64": ((1280, 1536), (1025, 1280)),
+               "complex128": ((1280, 1536), (1027, 1280))}
+
+
+def check_odd_windows(dev, gen):
+    """window_gather2 and window_gather against their plain versions, bit
+    for bit, at the windows of ``ODD_WINDOWS`` in every dtype, each set
+    with a dead window and live starts off the 1024-element grid."""
+    import torch
+    from spfx_torch.kernels import gather
+    for dtype, pairs in ODD_WINDOWS.items():
+        L = torch.randn(64 * 1024, generator=gen, device=dev,
+                        dtype=getattr(torch, dtype))
+        sa = torch.tensor([0, 1500, -1, 9 * 1024 + 7, 40 * 1024],
+                          dtype=torch.int32, device=dev)
+        sb = torch.tensor([-3, 2048, 30 * 1024 + 1023], dtype=torch.int32,
+                          device=dev)
+        for wa, wb in pairs:
+            ka, kb = gather.window_gather2(L, sa, wa, sb, wb)
+            pa, pb = gather.window_gather2_plain(L, sa, wa, sb, wb)
+            k1 = gather.window_gather(L, sa, wa)
+            if not (torch.equal(ka, pa) and torch.equal(kb, pb)
+                    and torch.equal(k1, pa)):
+                fail(f"window_gather2 {dtype} at windows ({wa}, {wb}) "
+                     "differs from its plain version")
+    torch.cuda.synchronize()
 
 
 def narrow_potrf_calls(dev, gen):
@@ -1342,13 +1390,17 @@ def edge_diag_c_calls(dev, lu: bool):
 def diag_c_rows(pcalls, lcalls):
     """Times (kernel, plain, library) and bounds of potrf_inv_c and
     getrf_inv_c at the complex64 48^3 plans' largest calls (by batch), and
-    over all of each path's calls in one graph. The library calls are
-    cholesky_ex + solve_triangular and lu_factor_ex(pivot=False) + two
-    solve_triangular, timed eagerly (their complex batched paths are not
-    captured). Bounds: the bytes of potrf_work / getrf_work at 8 bytes a
-    value over the memory rate, or 4x their real operations (a complex
-    multiply-add is four real ones) over the f32 peak."""
+    over all of each path's calls in one graph; each kernel also at B = 1
+    on its plan's widest block (the first of full width: a launch's floor
+    is its widest block's path), and in complex128 at the same calls. The
+    library calls are cholesky_ex + solve_triangular and
+    lu_factor_ex(pivot=False) + two solve_triangular, timed eagerly (their
+    complex batched paths are not captured). Bounds: the bytes of
+    potrf_work / getrf_work at 8 bytes a value (16 in complex128) over the
+    memory rate, or 4x their real operations (a complex multiply-add is
+    four real ones) over the f32 (f64) peak."""
     import torch
+    from spfx_torch.bench.kernel_probe import widest_block
     from spfx_torch.kernels import panel
     rows = {}
     for name, calls, fn, plain, work, masked in (
@@ -1373,11 +1425,15 @@ def diag_c_rows(pcalls, lcalls):
                             LU, eye, upper=False, unitriangular=True),
                         torch.linalg.solve_triangular(LU, eye, upper=True))
 
-        def path():
+        def path(calls=calls):
             for w, d in calls:
                 fn(w, d)
 
         pw = [work(w, d.shape[1], d.element_size()) for w, d in calls]
+        w1, D1 = widest_block(calls)
+        bytes128, ops128 = work(wrel, nb, 16)
+        c128 = [(w, d.to(torch.complex128)) for w, d in calls]
+        D128, D1_128 = D.to(torch.complex128), D1.to(torch.complex128)
         rows[name] = dict(
             shape=f"B={B} nb={nb} complex64",
             ms=time_ms(lambda: fn(wrel, D)),
@@ -1386,29 +1442,14 @@ def diag_c_rows(pcalls, lcalls):
             bound_ms=bms, bound_by=by,
             path_ms=time_ms(path, reps=1, rounds=3),
             path_bound_ms=bound(sum(b for b, _ in pw),
-                                4 * sum(o for _, o in pw), "float32")[0])
-    # getrf_inv_c per launch at B = 1, on the plan's widest block (the
-    # first of full width: a launch's floor is its widest block's path),
-    # and complex128 at the same calls
-    row = rows["getrf_inv_c"]
-    widths = [int(w.clamp(0, d.shape[1]).max()) for w, d in lcalls]
-    wb, d = lcalls[widths.index(max(widths))]
-    i = int(wb.clamp(0, d.shape[1]).argmax())
-    w1, D1 = wb[i:i + 1].contiguous(), d[i:i + 1].contiguous()
-    row["b1_width"] = max(widths)
-    wrel, D = max(lcalls, key=lambda c: c[0].shape[0])
-    row["ms_b1"] = time_ms(lambda: panel.getrf_inv(w1, D1))
-    c128 = [(w, d.to(torch.complex128)) for w, d in lcalls]
-    D128, D1_128 = D.to(torch.complex128), D1.to(torch.complex128)
-
-    def path128():
-        for w, d in c128:
-            panel.getrf_inv(w, d)
-    row["ms_c128"] = time_ms(lambda: panel.getrf_inv(wrel, D128))
-    row["ms_b1_c128"] = time_ms(lambda: panel.getrf_inv(w1, D1_128))
-    row["path_ms_c128"] = time_ms(path128, reps=1, rounds=3)
-    nbytes, ops = getrf_work(wrel, D.shape[1], 16)
-    row["bound_ms_c128"] = bound(nbytes, 4 * ops, "float64")[0]
+                                4 * sum(o for _, o in pw), "float32")[0],
+            b1_width=int(w1[0].clamp(0, nb)),
+            ms_b1=time_ms(lambda: fn(w1, D1)),
+            ms_c128=time_ms(lambda: fn(wrel, D128)),
+            ms_b1_c128=time_ms(lambda: fn(w1, D1_128)),
+            path_ms_c128=time_ms(lambda: path(c128), reps=1, rounds=3),
+            bound_ms_c128=bound(bytes128, 4 * ops128, "float64")[0])
+        del c128
     return rows
 
 
@@ -2579,6 +2620,40 @@ def main(argv) -> int:
 
     mark("6, 6b, 6c, 6f and 6g")
 
+    # 6h. the UT gathers at windows that are not a multiple of 1024
+    # elements: the kernel against its plain version, then the two configs
+    # whose plans build such windows, card against CPU
+    t0 = time.perf_counter()
+    check_odd_windows(dev, cgen)
+    for tag, kw in ODD_WINDOW_CONFIGS:
+        for dtype, tol in (("float64", 1e-10), ("float32", 1e-4)):
+            cfg = Config(dtype=dtype, **kw)
+            fgs = (spfx_torch.cholesky(A12, cfg, device=dev),
+                   spfx_torch.lu(A12u, cfg, device=dev))
+            fcs = (spfx_torch.cholesky(A12, cfg, device="cpu"),
+                   spfx_torch.lu(A12u, cfg, device="cpu"))
+            for fg, fc in zip(fgs, fcs):
+                odd = sorted({wa for _, wa, _, _ in gather_calls(fg.plan, dev)
+                              if wa % 1024})
+                if not odd:
+                    fail(f"{tag}: the {GRID_CPU}^3 plan holds no UT window "
+                         "that is not a multiple of 1024")
+                for name, g, c in zip(("L",) if fg is fgs[0]
+                                      else ("LU unsym Lx", "LU unsym Ux"),
+                                      factor_arrays(fg), factor_arrays(fc)):
+                    rel = float((g.cpu() - c).abs().max() / c.abs().max())
+                    log(f"[card vs cpu] {GRID_CPU}^3 {dtype} {tag} {name} "
+                        f"(windows {odd}) max rel diff {rel:.3e}")
+                    if not rel <= tol:
+                        fail(f"card and CPU factors ({name} {tag} {dtype}) "
+                             f"differ by {rel:.3e} (limit {tol:g})")
+    log(f"[kernels] window_gather2 at windows of 1,280, 1,536 and 1,027 "
+        f"(f32, complex128) or 1,025 (f64, complex64) elements bit for bit, "
+        f"dead windows included; both odd-window configs card against CPU "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    mark("6h")
+
     # 6e. the surfaces: CLI, checkpoints, profile scope
     t0 = time.perf_counter()
     surfaces(dev)
@@ -2629,7 +2704,7 @@ def main(argv) -> int:
                                    "cholesky"),
         # no Pallas kernel: the JAX package's complex panels take XLA's
         # Cholesky and its no-pivot LU, its "high" products XLA's bf16x3
-        "potrf_inv_c": (cu + "diag_block_c.cu", "spfx/kernels/blocks.py:352",
+        "potrf_inv_c": (cu + "potrf_inv_c.cu", "spfx/kernels/blocks.py:352",
                         "cholesky_c64"),
         "getrf_inv_c": (cu + "getrf_inv_c.cu", "spfx/kernels/blocks.py:842",
                         "lu_c64"),

@@ -1,10 +1,10 @@
-"""Probe ``getrf_inv``, ``potrf_inv``, ``getrf_inv_c``, ``bmm_bf16x3``,
-``extend_add_rows``, ``syrk_gemm_batched`` and ``cholesky_small_batched``
-on the card: where a launch's time goes, by timing copies of the kernel's
-source with parts cut out.
+"""Probe ``getrf_inv``, ``potrf_inv``, ``getrf_inv_c``, ``potrf_inv_c``,
+``bmm_bf16x3``, ``extend_add_rows``, ``syrk_gemm_batched`` and
+``cholesky_small_batched`` on the card: where a launch's time goes, by
+timing copies of the kernel's source with parts cut out.
 
-    python -m spfx_torch.bench.kernel_probe getrf|potrf|getrf_c [plan]
-        [SOURCE ...]
+    python -m spfx_torch.bench.kernel_probe getrf|potrf|getrf_c|potrf_c
+        [plan] [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe bf16x3 [plan] [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe bf16x3 copy [SOURCE ...]
     python -m spfx_torch.bench.kernel_probe extend [SOURCE ...]
@@ -19,13 +19,18 @@ source with parts cut out.
   staging and the stores; ``POTRF_CUTS``: the inverse, everything but the
   staging and the stores); with ``plan``, in f32 on the 48^3 plan's own
   blocks instead (LU for getrf, Cholesky for potrf; mostly narrower than
-  32): the first block of its largest call, that call, and all of its
-  calls in one graph;
+  32): one launch at B = 1 on the plan's widest block (``widest_block``:
+  a launch's floor is its widest block's path), its largest call, and
+  all of its calls in one graph;
 - ``getrf_c``: the same for ``getrf_inv_c`` (csrc/getrf_inv_c.cu) in
   complex64 and complex128, seeded complex blocks (``GETRF_C_CUTS``, the
   cuts of ``GETRF_CUTS``); with ``plan``, on the complex64 48^3 LU plan's
   own blocks (the unsymmetric magnetic Laplacian, ``magnetic_laplacian``),
   in both types;
+- ``potrf_c``: the same for ``potrf_inv_c`` (csrc/potrf_inv_c.cu),
+  seeded Hermitian blocks (``POTRF_C_CUTS``, the cuts of ``POTRF_CUTS``);
+  with ``plan``, on the complex64 48^3 Cholesky plan's own blocks (the
+  magnetic Laplacian), in both types;
 - ``bf16x3``: device time of ``bmm_bf16x3``'s kernel at
   ``BF16X3_SHAPES`` (the 48^3 plan's largest UT product and two common
   ones), whole and with its loads, split, products or stores cut
@@ -72,8 +77,8 @@ Each copy is the kernel's source under ``csrc/`` with text edits, built
 with nvcc (all copies at once) and loaded with ctypes; a cut copy's
 outputs are wrong, the point is the time each part holds a launch. The
 whole copy is first checked against the plain version (getrf, potrf,
-getrf_c: 1e-4 f32 and complex64, 1e-12 f64 and complex128 of the largest
-plain output; bf16x3: 3 k 2^-22 of sum |a||b| per entry, as
+getrf_c, potrf_c: 1e-4 f32 and complex64, 1e-12 f64 and complex128 of the
+largest plain output; bf16x3: 3 k 2^-22 of sum |a||b| per entry, as
 chip_smoke.py's phase 3g; chol_small the same as getrf,
 and exact zeros above the diagonal; extend: 1e-6 of the
 slab's largest entry; syrk: 1e-5). Further SOURCE files (another version
@@ -145,6 +150,14 @@ POTRF_CUTS = [
     ("no inverse", [("kInv = true", "kInv = false")]),
     ("staging and stores only", [("kInv = true", "kInv = false"),
                                  ("kChol = true", "kChol = false")]),
+]
+
+# the same for csrc/potrf_inv_c.cu
+POTRF_C_CUTS = [
+    ("whole", []),
+    ("no inverse", [("kInvC = true", "kInvC = false")]),
+    ("staging and stores only", [("kInvC = true", "kInvC = false"),
+                                 ("kCholC = true", "kCholC = false")]),
 ]
 
 # the same for csrc/extend_add.cu; the last copy adds an empty kernel of
@@ -321,6 +334,29 @@ def potrf_inputs(B: int, dtype):
             torch.from_numpy(D).to(dev, dtype))
 
 
+def potrf_c_inputs(B: int, dtype):
+    """(wrel, D): seeded Hermitian positive definite complex (B, 32, 32)
+    blocks X X^H + 32 I with junk above the diagonal (never read), every
+    block of full width."""
+    rng = np.random.default_rng(B)
+    X = rng.standard_normal((B, 32, 32)) + 1j * rng.standard_normal(
+        (B, 32, 32))
+    D = X @ np.conj(np.swapaxes(X, 1, 2)) + 32.0 * np.eye(32)[None]
+    D += np.triu(rng.standard_normal((B, 32, 32)) * 100.0, 1)
+    dev = torch.device("cuda")
+    return (torch.full((B,), 32, dtype=torch.int32, device=dev),
+            torch.from_numpy(D).to(dev, dtype))
+
+
+def widest_block(calls):
+    """(wrel, D) of one block at B = 1: the first block of the greatest
+    live width among the diagonal-block calls ``calls``."""
+    widths = [int(w.clamp(0, d.shape[1]).max()) for w, d in calls]
+    w, d = calls[widths.index(max(widths))]
+    i = int(w.clamp(0, d.shape[1]).argmax())
+    return w[i:i + 1].contiguous(), d[i:i + 1].contiguous()
+
+
 def plan_getrf_calls(ctx, dev):
     """(wrel, D) of every getrf_inv call of the LU plan of ``ctx`` (an
     ``spfx_torch.LU``): the 32 x 32 diagonal blocks of each PC bucket's LU
@@ -427,15 +463,18 @@ def bmm_operands(shape, gen, dev):
 
 def plan_context(name: str, dev):
     """The 48^3 plan context of a ``diag`` kind: Cholesky or LU of
-    laplacian_3d(48) in f32, or the complex64 LU of the unsymmetric
-    magnetic Laplacian (``magnetic_laplacian``), as chip_smoke.py's phase
-    3f builds it."""
+    laplacian_3d(48) in f32, or the complex64 Cholesky of the magnetic
+    Laplacian (``magnetic_laplacian``) or LU of its unsymmetric variant,
+    as chip_smoke.py's phase 3f builds them."""
     import spfx_torch
     from spfx_torch import Config
     from spfx_torch.io import generate
     if name == "LU_c64":
         return spfx_torch.LU(magnetic_laplacian(48, unsym=True),
                              Config(dtype="complex64"), device=dev)
+    if name == "Cholesky_c64":
+        return spfx_torch.Cholesky(magnetic_laplacian(48),
+                                   Config(dtype="complex64"), device=dev)
     return getattr(spfx_torch, name)(generate.laplacian_3d(48), device=dev)
 
 
@@ -451,12 +490,15 @@ DIAG = {"getrf": ("getrf_inv.cu", "spfx_getrf_inv_", GETRF_CUTS, 4,
                   "Cholesky", REAL),
         "getrf_c": ("getrf_inv_c.cu", "spfx_getrf_inv_", GETRF_C_CUTS, 4,
                     "getrf_inv_plain", getrf_c_inputs, plan_getrf_calls,
-                    "LU_c64", COMPLEX)}
+                    "LU_c64", COMPLEX),
+        "potrf_c": ("potrf_inv_c.cu", "spfx_potrf_inv_", POTRF_C_CUTS, 2,
+                    "potrf_inv_plain", potrf_c_inputs, plan_potrf_calls,
+                    "Cholesky_c64", COMPLEX)}
 
 
 def diag(kind: str, extra=(), plan=False) -> bool:
-    """The ``getrf``, ``potrf`` and ``getrf_c`` modes (see the module
-    docstring)."""
+    """The ``getrf``, ``potrf``, ``getrf_c`` and ``potrf_c`` modes (see the
+    module docstring)."""
     src, prefix, cuts, nout, plain_name, make_inputs, plan_calls, ctx_name, \
         types = DIAG[kind]
     plain = getattr(panel, plain_name)
@@ -464,9 +506,10 @@ def diag(kind: str, extra=(), plan=False) -> bool:
     if plan:
         calls = plan_calls(plan_context(ctx_name, dev), dev)
         wrel, D = max(calls, key=lambda c: c[0].shape[0])
+        w1, D1 = widest_block(calls)
         cases = {td: [
-            (f"48^3 plan's largest call, first block (w {int(wrel[0])})",
-             [(wrel[:1].contiguous(), D[:1].contiguous())]),
+            (f"48^3 plan's widest block, B 1 (w {int(w1[0])})",
+             [(w1, D1)]),
             (f"48^3 plan's largest call (B {wrel.shape[0]})", [(wrel, D)]),
             (f"48^3 plan's {len(calls)} calls", calls)]
             for td, _ in types}

@@ -78,9 +78,9 @@ _SIGNATURES = {
                                                         _c_int, _vp]
                    for t in ("f32", "f64")},
     # complex diagonal blocks, the signatures of potrf_inv and getrf_inv
-    "diag_block_c": {f"spfx_potrf_inv_{t}": [_vp, _vp, _vp, _vp, _c_int,
-                                             _c_int, _vp]
-                     for t in ("c64", "c128")},
+    "potrf_inv_c": {f"spfx_potrf_inv_{t}": [_vp, _vp, _vp, _vp, _c_int,
+                                            _c_int, _vp]
+                    for t in ("c64", "c128")},
     "getrf_inv_c": {f"spfx_getrf_inv_{t}": [_vp] * 6 + [_c_int, _c_int, _vp]
                     for t in ("c64", "c128")},
     # (A, A's batch and row strides, B, B's batch and column strides, C,

@@ -4,19 +4,24 @@ Port of ``dma_gather2`` / ``dma_gather`` (spfx/kernels/pallas_blocks.py).
 Window b of a set is ``L[al(s) : al(s) + win]`` with
 ``al(s) = (s // ALIGN) * ALIGN`` for its start ``s``, ALIGN = 1024 elements
 whatever the dtype: the plan builds every row mask, column map and
-extend-add table of an update step against that superwindow base. A window
-with ``s < 0`` is a dead task and comes back as zeros (what the CPU gather
-with FILL_OR_DROP gives, so the kernel and the plain version agree bit for
-bit). A live window must end inside ``L``: it is never clipped.
+extend-add table of an update step against that superwindow base. The
+window length ``win`` is any positive number of elements: an update
+step's source superwindow is (mp + ALIGN / kp) kp elements, a multiple of
+ALIGN only where mp kp is one (1,280 under ``update_tile=16``, or with
+``class_min=8, stride_min=0``). A window with ``s < 0`` is a dead task and
+comes back as zeros (what the CPU gather with FILL_OR_DROP gives, so the
+kernel and the plain version agree bit for bit). A live window must end
+inside ``L``: it is never clipped.
 
-float32, float64, complex64 and complex128. The kernel moves 16-byte
-vectors and aligns each start down to ALIGN of the element type it is
-given, so a complex ``L`` goes in as itself, with its own element size
-(8 or 16 bytes: two values or one per vector), and no start changes. Its
-real view (``torch.view_as_real(L).reshape(-1)``) would need the starts
-doubled, and the kernel's alignment of a doubled start, (2s // ALIGN) *
-ALIGN, is not the doubled alignment 2 (s // ALIGN) * ALIGN whenever s %
-ALIGN >= ALIGN / 2.
+float32, float64, complex64 and complex128. The kernel aligns each start
+down to ALIGN of the element type it is given, so a complex ``L`` goes in
+as itself, with its own element size (8 or 16 bytes), and no start
+changes. It moves 16-byte vectors where a window is a whole number of
+them, single elements otherwise. Its real view
+(``torch.view_as_real(L).reshape(-1)``) would need the starts doubled,
+and the kernel's alignment of a doubled start, (2s // ALIGN) * ALIGN, is
+not the doubled alignment 2 (s // ALIGN) * ALIGN whenever s % ALIGN >=
+ALIGN / 2.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 CUDA kernel (csrc/window_gather.cu) or raises.
@@ -45,9 +50,8 @@ def _check(L, starts, win: int, what: str) -> None:
     if starts.device != L.device:
         raise ValueError(f"{what}: starts on {starts.device}, L on "
                          f"{L.device}")
-    if win <= 0 or win % ALIGN:
-        raise ValueError(f"{what}: window {win} is not a positive multiple "
-                         f"of {ALIGN}")
+    if win <= 0:
+        raise ValueError(f"{what}: window {win} is not positive")
 
 
 def _aligned(starts):

@@ -30,7 +30,7 @@ anything else.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 CUDA kernel (csrc/potrf_inv.cu, csrc/getrf_inv.cu; complex blocks
-csrc/diag_block_c.cu and csrc/getrf_inv_c.cu, counted as ``potrf_inv_c``
+csrc/potrf_inv_c.cu and csrc/getrf_inv_c.cu, counted as ``potrf_inv_c``
 / ``getrf_inv_c``) or raises.
 """
 
@@ -66,21 +66,15 @@ def _check(name: str, wrel, D) -> None:
         raise ValueError(f"{name}: unsupported device {D.device}")
 
 
-# kernel name -> the library of its complex form
-_COMPLEX_LIB = {"potrf_inv": "diag_block_c", "getrf_inv": "getrf_inv_c"}
-
-
 def _launch(name: str, wrel, D, outs) -> None:
     """Launch kernel ``name`` on CUDA tensors: inputs (wrel, D), outputs
-    ``outs`` of D's shape; library ``name`` for real blocks, the one
-    ``_COMPLEX_LIB`` names (counted as ``name``_c) for complex ones."""
+    ``outs`` of D's shape; library and count ``name`` for real blocks,
+    ``name``_c for complex ones."""
     B, nb = D.shape[0], D.shape[1]
-    cplx = D.is_complex()
-    lib = _cuda.lib(_COMPLEX_LIB[name] if cplx else name)
-    fn = getattr(lib, f"spfx_{name}_{_SUFFIX[D.dtype]}")
+    what = name + ("_c" if D.is_complex() else "")
+    fn = getattr(_cuda.lib(what), f"spfx_{name}_{_SUFFIX[D.dtype]}")
     rc = fn(wrel.data_ptr(), D.data_ptr(), *(o.data_ptr() for o in outs),
             B, nb, _cuda.stream_ptr(D.device))
-    what = name + ("_c" if cplx else "")
     _cuda.check(rc, what)
     if B:
         _cuda.count(what)

@@ -249,6 +249,44 @@ def test_plain_diag_blocks_match_lax(w):
                 1.0, np.abs(r).max())
 
 
+@pytest.mark.parametrize("w", range(33))
+def test_plain_potrf_inv_c_contract_edges(w):
+    """The contract's edges of potrf_inv_plain on one complex block (B = 1,
+    nb = 32) at width w, complex64 and complex128, exactly: L's diagonal
+    stored real, L lower triangular and zero on the padding rows and
+    columns, Linv lower triangular with unit rows on the padding and zeros
+    in the padding columns of the live rows, and I at w = 0; then
+    L L^H = D' and Linv (L + the padding's identity) = I on the live part
+    within the tolerance of the largest entry. The card's kernel
+    (csrc/potrf_inv_c.cu) is held to this plain version by chip_smoke.py
+    phase 3f."""
+    rng = np.random.default_rng(100 + w)
+    nb = 32
+    X = rng.standard_normal((nb, nb)) + 1j * rng.standard_normal((nb, nb))
+    D = np.tril(X @ X.conj().T + nb * np.eye(nb))
+    D = D + np.triu(np.full((nb, nb), 1e3 + 1e3j), 1)
+    wrel = torch.tensor([w], dtype=torch.int32)
+    pad = np.arange(nb) >= w
+    for dtype in DTYPES:
+        L, Li = (t[0].numpy() for t in panel.potrf_inv_plain(
+            wrel, torch.tensor(D[None], dtype=getattr(torch, dtype))))
+        assert (np.diag(L).imag == 0).all()
+        assert (np.triu(L, 1) == 0).all() and (np.triu(Li, 1) == 0).all()
+        assert (L[pad] == 0).all() and (L[:, pad] == 0).all()
+        np.testing.assert_array_equal(Li[pad], np.eye(nb)[pad])
+        assert (Li[~pad][:, pad] == 0).all()
+        if w == 0:
+            assert (L == 0).all()
+            np.testing.assert_array_equal(Li, np.eye(nb))
+        H = np.tril(D[:w, :w]) + np.tril(D[:w, :w], -1).conj().T
+        lw = L[:w, :w].astype(np.complex128)
+        assert np.abs(lw @ lw.conj().T - H).max(initial=0) <= TOL[dtype] \
+            * max(1.0, np.abs(H).max(initial=0))
+        eye = Li.astype(np.complex128) @ (L + np.diag(pad.astype(L.dtype)))
+        assert np.abs(eye - np.eye(nb)).max() <= TOL[dtype] * max(
+            1.0, np.abs(Li).max())
+
+
 @pytest.mark.parametrize("scale", [2.0 ** 60, 2.0 ** -60],
                          ids=["2^60", "2^-60"])
 @pytest.mark.parametrize("w", [1, 9, 32])

@@ -129,8 +129,10 @@ def test_window_gather_rejects_bad_input():
                                              dtype=torch.int32), 2 * ALIGN)
     with pytest.raises(ValueError, match="int32"):
         gather.window_gather(L, ok.long(), ALIGN)
-    with pytest.raises(ValueError, match="multiple"):
-        gather.window_gather(L, ok, 100)
+    with pytest.raises(ValueError, match="not positive"):
+        gather.window_gather(L, ok, 0)
+    with pytest.raises(ValueError, match="not positive"):
+        gather.window_gather2(L, ok, ALIGN, ok, 0)
     with pytest.raises(TypeError):
         gather.window_gather(L.half(), ok, ALIGN)
 
@@ -184,6 +186,7 @@ def test_every_source_is_bound():
     ("extend_add.cu", kernel_probe.EXTEND_CUTS),
     ("chol_small.cu", kernel_probe.CHOL_SMALL_CUTS),
     ("getrf_inv_c.cu", kernel_probe.GETRF_C_CUTS),
+    ("potrf_inv_c.cu", kernel_probe.POTRF_C_CUTS),
     ("bmm_bf16x3.cu", kernel_probe.BF16X3_CUTS)])
 def test_probe_cuts_apply(source, cuts):
     """Every edit of every cut of kernel_probe finds its text exactly once
@@ -219,21 +222,74 @@ def test_probe_declared_arity(fn):
 @pytest.mark.parametrize("lib,fn", [
     ("bmm_bf16x3", "spfx_bmm_bf16x3_fast_f32"),
     ("getrf_inv_c", "spfx_getrf_inv_c64"),
-    ("getrf_inv_c", "spfx_getrf_inv_c128")])
+    ("getrf_inv_c", "spfx_getrf_inv_c128"),
+    ("potrf_inv_c", "spfx_potrf_inv_c64"),
+    ("potrf_inv_c", "spfx_potrf_inv_c128")])
 def test_probe_declared_arity_new_entries(lib, fn):
     """The probe reads the parameters of the entries it calls by name in a
-    current or a parent source (bmm_bf16x3's and getrf_inv_c's) as _cuda
-    binds them."""
+    current or a parent source (bmm_bf16x3's, getrf_inv_c's and
+    potrf_inv_c's) as _cuda binds them."""
     text = open(os.path.join(_cuda._CSRC, f"{lib}.cu")).read()
     assert kernel_probe.declared_arity(text, fn) == len(
         _cuda._SIGNATURES[lib][fn])
 
 
-@pytest.mark.parametrize("name", sorted(panel._COMPLEX_LIB))
+@pytest.mark.parametrize("kind", sorted(kernel_probe.DIAG))
+def test_probe_diag_entries(kind):
+    """Each diagonal-block mode of the probe names a source whose library
+    _cuda binds with one entry per type of the mode, a plain version of
+    panel.py with as many outputs as the mode reads back, and cuts that
+    start with the whole kernel."""
+    src, prefix, cuts, nout, plain, _, _, _, types = kernel_probe.DIAG[kind]
+    sigs = _cuda._SIGNATURES[src[:-3]]
+    for _, t in types:
+        assert len(sigs[prefix + t]) == 5 + nout, t
+    w = torch.tensor([2], dtype=torch.int32)
+    D = torch.eye(4, dtype=types[0][0])[None] * 4
+    assert len(getattr(panel, plain)(w, D)) == nout
+    assert cuts[0] == ("whole", [])
+
+
+def test_probe_widest_block():
+    """widest_block picks the first block of the greatest clamped width,
+    at B = 1."""
+    D = torch.arange(5 * 4 * 4, dtype=torch.float32).view(5, 4, 4)
+    calls = [(torch.tensor([1, 0], dtype=torch.int32), D[:2]),
+             (torch.tensor([3, 9, 4], dtype=torch.int32), D[2:])]
+    w, d = kernel_probe.widest_block(calls)
+    assert w.tolist() == [9] and torch.equal(d, D[3:4])
+
+
+def test_probe_complex_cholesky_plan_calls(monkeypatch):
+    """The potrf_c mode's plan context and calls, on a 6^3 magnetic
+    Laplacian on the CPU: complex64 (B, nb, nb) blocks, nb <= 32, one call
+    per 32 columns of each PC bucket, each Hermitian block factored by the
+    plain version with L L^H = D on the live part."""
+    small = kernel_probe.magnetic_laplacian
+    monkeypatch.setattr(kernel_probe, "magnetic_laplacian",
+                        lambda k, unsym=False: small(6, unsym))
+    ctx = kernel_probe.plan_context("Cholesky_c64", torch.device("cpu"))
+    assert ctx.config.dtype == "complex64"
+    calls = kernel_probe.plan_potrf_calls(ctx, torch.device("cpu"))
+    assert len(calls) == sum(-(-pb.cp // 32) for lp in ctx.plan.levels
+                             for pb in lp.panels)
+    for w, D in calls:
+        assert D.dtype == torch.complex64 and D.shape[1] <= 32
+        assert w.dtype == torch.int32 and w.shape == (D.shape[0],)
+    w, D = kernel_probe.widest_block(calls)
+    L, _ = panel.potrf_inv_plain(w, D)
+    n = int(w[0])
+    Dm = panel.masked_block(w, D)[0][0, :n, :n]
+    Dm = Dm + Dm.tril(-1).mH
+    np.testing.assert_allclose((L[0, :n, :n] @ L[0, :n, :n].mH).numpy(),
+                               Dm.numpy(), atol=1e-5 * float(Dm.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["getrf_inv", "potrf_inv"])
 def test_complex_blocks_have_their_library(name):
-    """Complex blocks of ``name`` launch from a bound library that exports
-    both complex entries."""
-    sigs = _cuda._SIGNATURES[panel._COMPLEX_LIB[name]]
+    """Complex blocks of ``name`` launch from the bound library ``name``_c
+    (csrc/``name``_c.cu), which exports both complex entries."""
+    sigs = _cuda._SIGNATURES[f"{name}_c"]
     assert {f"spfx_{name}_c64", f"spfx_{name}_c128"} <= set(sigs)
 
 
