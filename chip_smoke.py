@@ -113,6 +113,24 @@ non-zero):
    bmm_bf16x3 launches (one per UT step, LU's two), the graph against the
    eager walk, the factor within 1e-3 of the default precision's (phase
    4), the refined residual, and the steady wall beside the default's;
+4g. the stage-streamed engines, StreamingCholesky and StreamingLU at 48^3
+   f32 with the default Config and 2^24 values a stage: the stage count,
+   the first factorization's launches (every stage's walk warmed up and
+   captured) against the plan's prediction, steady factorizations (one
+   replay a stage, counters unmoved) with upload, walk and download times,
+   the peak device memory above the start below the in-core path's (4,
+   4b), the factor within 1e-5 of the in-core graph factor's largest
+   entry, the refined residual (<= 1e-12);
+4h. the ALS/iALS recommender at als_bench's full width (rank 64, caps
+   256 / 512, 512-row chunks, f32) on the "20m" synthetic shape with a
+   fifth of its users (27,600 x 27,000, average degree 144; generated in
+   a spawned worker from phase 3 on): generation time, the slope per
+   iteration and examples/s, U and V finite with zero padding rows,
+   full_implicit_loss below the seeded tables', recall@20 and NDCG@10
+   beside the popularity baseline, recall@20 above it once the caps hold
+   every interaction (a second model: the bench's item cap of 512 drops
+   the most popular items' interactions), peak memory, one iteration's
+   device-busy share;
 5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12,
    with the device solve report;
 5b. f64 LU at 32^3 with unsymmetric values (every entry above the diagonal
@@ -137,6 +155,12 @@ non-zero):
    ordering="nd", class_min=8, stride_min=0), both kinds, f64 and f32,
    card against CPU (within 1e-10 and 1e-4), each plan checked to hold
    such a window;
+6i. the recommender on the "100k" shape at rank 64, card against CPU:
+   fit_steps(2) in f64 (within 1e-10) and under matmul_precision="high"
+   in f32 (within 1e-4); one f64 user sweep against the dense oracle; the
+   batched Cholesky with NaN above the diagonal; then StreamingCholesky and
+   StreamingLU at 12^3 f64 (2^15 values a stage), card against CPU within
+   1e-10;
 6e. the surfaces at 12^3: the CLI (both kinds, factors saved), the saved
    factors loaded onto the card and solved (host and device solve), and
    the profile scope's trace; the CLI on complex .mtx files (complex64,
@@ -1678,8 +1702,10 @@ def panel_bench(dev):
 # --------------------------------------------------------------------------
 
 def is_lu(ctx) -> bool:
+    """Whether a context (in-core or streaming) factors LU."""
     import spfx_torch
-    return isinstance(ctx, spfx_torch.LU)
+    return isinstance(ctx, spfx_torch.LU) \
+        or getattr(ctx, "lu", False) is True
 
 
 def panel_shape(pb) -> tuple:
@@ -1867,7 +1893,7 @@ def main_path(ctx, A, label: str, repeats: int = 5,
                factorize_all_s=ts, entry_values_s=entry_s,
                eager_walk_s=eager_s, graph_vs_eager=graph_err,
                gflops=ctx.plan.flops / med / 1e9, peak_mem_gb=peak / 1e9,
-               held_mem_gb=held / 1e9,
+               peak_rise_gb=(peak - mem0) / 1e9, held_mem_gb=held / 1e9,
                reserved_mem_gb=torch.cuda.memory_reserved() / 1e9,
                solve_s=solve_s, residual_norefine=r0, residual=res,
                launches=launches, graph_launches=cap["launches"])
@@ -2151,6 +2177,328 @@ def surfaces_complex(dev) -> None:
             fail(f"loaded complex {name}: residual {res:.3e}")
 
 
+# --------------------------------------------------------------------------
+# phase 4g: the stage-streamed engines; 4h: the recommender; 6i: both,
+# card against CPU
+# --------------------------------------------------------------------------
+
+STREAM_STAGE_ELEMS = 1 << 24       # phase 4g's stage cap (values)
+STREAM_STAGE_ELEMS_CPU = 1 << 15   # phase 6i's, at 12^3
+# phase 4h: the "20m" shape (als_bench) with the users cut to a fifth
+ALS_SHAPE = dict(num_users=27600, num_items=27000, avg_degree=144, rank=16,
+                 seed=0)
+ALS_ITERS = 4                      # the slope's extra iterations
+ALS_FULL_ITERS = 3                 # the uncut-caps model's iterations
+
+
+def streaming_phase(A, sym, defaults: dict, incore_peak: dict, dev,
+                    repeats: int = 3) -> dict:
+    """4g. StreamingCholesky and StreamingLU at 48^3 f32 with the default
+    Config and a cap of STREAM_STAGE_ELEMS values a stage: the stage count;
+    the first factorization (every stage's walk warmed up and captured)
+    launching each kernel of the path twice as often as the plan predicts,
+    the captures once; ``repeats`` steady factorizations, each one replay a
+    stage with the counters unmoved; their walls with the upload, walk and
+    download times (CUDA events) and the host's packing beside them; the
+    peak device memory above the start, which must be below the in-core
+    path's (phase 4 / 4b); the factor within 1e-5 of the in-core graph
+    factor's largest entry (``defaults``); the refined residual <= 1e-12.
+    Returns {path: launches of the first factorization}."""
+    import torch
+    from spfx_torch import Config, scaled_residual, synth_rhs
+    from spfx_torch.kernels import _cuda
+    from spfx_torch.stream import StreamingCholesky, StreamingLU
+    paths = {}
+    for lu, kind in ((False, "cholesky"), (True, "lu")):
+        label = f"stream {kind} {GRID}^3 float32"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        _cuda.reset_launch_counts()
+        st = (StreamingLU if lu else StreamingCholesky)(
+            A, Config(), stage_elems=STREAM_STAGE_ELEMS, sym=sym, device=dev)
+        f = st.factorize(A)
+        launches = _cuda.launch_counts()
+        first, first_stats = st.factorize_time, dict(st.stats)
+        cap = st.captures["blocked"]
+        want = predicted_launches(st)
+        if cap["launches"] != want:
+            fail(f"{label}: the captures launched {cap['launches']}, the "
+                 f"plan predicts {want}")
+        if launches != {k: 2 * v for k, v in want.items()} \
+                or not all(launches[k] > 0 for k, v in want.items() if v):
+            fail(f"{label}: the first factorization launched {launches}; "
+                 f"its warm-ups and captures should launch twice {want}")
+        ts, stats = [], []
+        for _ in range(repeats):
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = st.factorize(A)
+            ts.append(time.perf_counter() - t0)
+            stats.append(dict(st.stats))
+            moved = {k: v for k, v in _cuda.launch_counts().items() if v}
+            if moved:
+                fail(f"{label}: a steady factorization launched {moved}")
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+        if not peak < incore_peak[kind]:
+            fail(f"{label}: peak device memory {peak:.3f} GB is not below "
+                 f"the in-core path's {incore_peak[kind]:.3f} GB")
+        dist = {}
+        for name, h, d in zip(("Lx", "Ux") if lu else ("L",),
+                              factor_arrays(f), defaults[kind][0]):
+            hd = h.to(dev)
+            dist[name] = max_diff(hd, d) / float(d.abs().max())
+            del hd
+            if not (dist[name] <= 1e-5 and bool(torch.isfinite(h).all())):
+                fail(f"{label}: {name} is {dist[name]:.3e} of its largest "
+                     "entry from the in-core graph factor's (limit 1e-5)")
+        b = synth_rhs(A)
+        res = scaled_residual(A, f.solve(b), b)
+        med = statistics.median(ts)
+        rep = dict(stages=len(st.stages), stage_elems=STREAM_STAGE_ELEMS,
+                   largest_stage=max(s.storage for s in st.stages),
+                   storage=st.plan.storage, analyze_s=st.analyze_time,
+                   plan_s=st.plan_time, first_factorize_s=first,
+                   first_stats=first_stats,
+                   warmup_s=cap["warmup_s"], capture_s=cap["capture_s"],
+                   factorize_s=med, factorize_all_s=ts,
+                   steady_stats=stats[ts.index(med)] if med in ts
+                   else stats[-1], peak_rise_gb=peak,
+                   incore_peak_rise_gb=incore_peak[kind],
+                   incore_factorize_s=defaults[kind][1],
+                   vs_incore=dist, residual=res, launches=launches)
+        log(f"[{label}] " + json.dumps(rep))
+        if not res <= 1e-12:
+            fail(f"{label}: scaled residual {res:.3e} > 1e-12")
+        paths[f"{kind}_stream"] = launches
+        del st, f
+        torch.cuda.empty_cache()
+    return paths
+
+
+def popularity_recall(train, test, k: int = 20) -> float:
+    """recall@k of recommending each test user the globally most popular
+    items it has not seen (tests/test_als.py's baseline, vectorised)."""
+    import numpy as np
+    ni = train.num_items
+    pop = np.bincount(train.item_ids, minlength=ni)
+    order = np.argsort(-pop)
+    users = np.unique(test.user_ids).astype(np.int64)
+    deg = np.bincount(train.user_ids, minlength=train.num_users)
+    cand = order[:k + int(deg[users].max())]
+    keys = users[:, None] * ni + cand[None, :]
+    seen = np.unique(train.user_ids.astype(np.int64) * ni + train.item_ids)
+    unseen = ~np.isin(keys, seen)
+    top = unseen & (np.cumsum(unseen, axis=1) <= k)
+    rel = np.unique(test.user_ids.astype(np.int64) * ni + test.item_ids)
+    hits = (np.isin(keys, rel) & top).sum(axis=1)
+    nrel = np.bincount(test.user_ids, minlength=test.num_users)[users]
+    return float(np.mean(hits / np.minimum(nrel, k)))
+
+
+def generate_als_data(shape: dict):
+    """``synthetic(**shape)`` and the seconds it took (phase 4h's data, made
+    in a spawned worker while the card runs the phases before 4h: it takes
+    tens of seconds of one host core)."""
+    from spfx_torch.recsys import data as rdata
+    t0 = time.perf_counter()
+    inter = rdata.synthetic(**shape)
+    return inter, time.perf_counter() - t0
+
+
+def recommender_phase(dev, als_data) -> dict:
+    """4h. The ALS/iALS recommender at als_bench's full width (rank 64,
+    caps 256 / 512, 512-row chunks, f32, "highest") on ALS_SHAPE: the
+    generation time; the slope per iteration between fit_steps(1) and
+    fit_steps(1 + ALS_ITERS) (one captured iteration replayed) and
+    examples/s; U and V finite with their padding rows zero;
+    full_implicit_loss below the seeded tables'; recall@20 and NDCG@10
+    beside the popularity baseline; the peak device memory; one
+    iteration's profiled device time over its wall (the busy share).
+
+    The bench's item cap of 512 drops the interactions of the most
+    popular items past their 512th (their rows are cut), and implicit ALS
+    reads a dropped positive as a negative, so at this shape the bench
+    config's recall@20 sits at the popularity baseline (ROADMAP Queue 3).
+    The check that recall@20 beats that baseline therefore runs on a
+    second model, the bench config with caps that hold every interaction
+    (``full_caps``), after ALS_FULL_ITERS iterations; the bench config's
+    recall is reported beside it with the interactions its caps drop.
+    ``als_data``: the future of ``generate_als_data(ALS_SHAPE)``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from spfx_torch.bench.als_bench import BENCH_CONFIG, slope
+    from spfx_torch.dist.mesh import round_up
+    from spfx_torch.recsys.als import ALSModel
+    t0 = time.perf_counter()
+    inter, gen_s = als_data.result()
+    wait_s = time.perf_counter() - t0
+    train, test = inter.split(holdout=5, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m = ALSModel(train, BENCH_CONFIG, device=dev)
+    setup_s = time.perf_counter() - t0
+    loss0 = m.full_implicit_loss()
+    per_iter, t = slope(m, ALS_ITERS)
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    U, V = m.U, m.V
+    if not (bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())):
+        fail("recommender: non-finite values in U or V")
+    if U[train.num_users:].any() or V[train.num_items:].any():
+        fail("recommender: a padding row of U or V is not zero")
+    loss1 = m.full_implicit_loss()
+    if not loss1 < loss0:
+        fail(f"recommender: full_implicit_loss {loss1:.6e} is not below the "
+             f"seeded tables' {loss0:.6e}")
+    t0 = time.perf_counter()
+    metrics = m.evaluate(test)
+    eval_s = time.perf_counter() - t0
+    pop = popularity_recall(train, test)
+    ideg = np.bincount(train.item_ids, minlength=train.num_items)
+    udeg = np.bincount(train.user_ids, minlength=train.num_users)
+    cap = BENCH_CONFIG.item_cap
+    dropped = dict(items_over_cap=int((ideg > cap).sum()),
+                   interactions_dropped=int(np.maximum(ideg - cap, 0).sum()),
+                   max_item_degree=int(ideg.max()),
+                   max_user_degree=int(udeg.max()))
+    # one iteration (fit_steps(1): copy-in, one replay, clone-out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.fit_steps(1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, _ = profiled_ms(lambda: m.fit_steps(1))
+    padded, capture = [m.nu, m.ni], m._fit_steps.capture
+    del m, U, V
+    torch.cuda.empty_cache()
+    # the same model with caps that hold every interaction
+    full = dataclasses.replace(
+        BENCH_CONFIG, user_cap=round_up(int(udeg.max()), 256),
+        item_cap=round_up(int(ideg.max()), 512))
+    t0 = time.perf_counter()
+    mf = ALSModel(train, full, device=dev)
+    mf.fit_steps(ALS_FULL_ITERS)
+    full_metrics = mf.evaluate(test)
+    full_caps = dict(user_cap=full.user_cap, item_cap=full.item_cap,
+                     iters=ALS_FULL_ITERS, seconds=time.perf_counter() - t0,
+                     **full_metrics)
+    del mf
+    torch.cuda.empty_cache()
+    if not full_metrics["recall@20"] > pop:
+        fail(f"recommender: with every interaction, recall@20 "
+             f"{full_metrics['recall@20']:.4f} is not above the popularity "
+             f"baseline's {pop:.4f}")
+    rep = dict(users=inter.num_users, items=inter.num_items,
+               interactions=inter.nnz, train_nnz=train.nnz,
+               padded_rows=padded, generate_s=gen_s,
+               generate_wait_s=wait_s, model_s=setup_s,
+               capture=capture, fit_steps_s=t,
+               per_iter_s=per_iter,
+               examples_per_sec=train.nnz * 2 / per_iter,
+               full_implicit_loss_seeded=loss0, full_implicit_loss=loss1,
+               popularity_recall20=pop, evaluate_s=eval_s, **metrics,
+               bench_caps_drop=dropped, full_caps=full_caps,
+               peak_rise_gb=peak, iteration_wall_ms=wall_ms,
+               iteration_device_ms=dev_ms, busy=dev_ms / wall_ms)
+    log("[recommender] " + json.dumps(rep))
+    return rep
+
+
+def card_vs_cpu_recsys_stream(dev) -> None:
+    """6i. The recommender on the "100k" shape at rank 64 (als_bench's
+    config), fit_steps(2) on the card and on the CPU: float64 within 1e-10
+    and matmul_precision="high" in float32 within 1e-4 of each table's
+    largest entry; one float64 user sweep on the card against the dense
+    oracle of tests/test_als.py (within 1e-8) and the batched Cholesky with
+    NaN above the diagonal bit for bit the clean input's; then
+    StreamingCholesky and StreamingLU at 12^3 float64 (unsymmetric values
+    for LU) with a cap of STREAM_STAGE_ELEMS_CPU values, card against CPU
+    within 1e-10."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from spfx_torch import Config
+    from spfx_torch.bench.als_bench import BENCH_CONFIG
+    from spfx_torch.bench.kernel_probe import unsym_laplacian
+    from spfx_torch.io import generate
+    from spfx_torch.kernels import dense
+    from spfx_torch.recsys import data as rdata
+    from spfx_torch.recsys.als import ALSConfig, ALSModel
+    from spfx_torch.stream import StreamingCholesky, StreamingLU
+    inter = rdata.synthetic(943, 1682, avg_degree=106, rank=12, seed=0)
+    for dtype, prec, tol in (("float64", "highest", 1e-10),
+                             ("float32", "high", 1e-4)):
+        cfg = dataclasses.replace(BENCH_CONFIG, dtype=dtype,
+                                  matmul_precision=prec)
+        mg = ALSModel(inter, cfg, device=dev)
+        mc = ALSModel(inter, cfg, device="cpu")
+        mg.fit_steps(2)
+        mc.fit_steps(2)
+        for name in ("U", "V"):
+            g, c = getattr(mg, name).cpu(), getattr(mc, name)
+            r = float((g - c).abs().max() / c.abs().max())
+            log(f"[card vs cpu] ALS 100k rank 64 {dtype} {prec} {name} max "
+                f"rel diff {r:.3e}")
+            if not r <= tol:
+                fail(f"ALS card and CPU {name} ({dtype} {prec}) differ by "
+                     f"{r:.3e} (limit {tol:g})")
+    # the dense oracle (tests/test_als.py:25) on the card
+    rng = np.random.default_rng(0)
+    R = (rng.random((12, 9)) < 0.4).astype(np.float64)
+    us, its = np.nonzero(R)
+    small = rdata.Interactions(12, 9, us.astype(np.int32),
+                               its.astype(np.int32),
+                               np.ones(len(us), np.float32))
+    m = ALSModel(small, ALSConfig(rank=4, lam=0.3, alpha=5.0, user_cap=9,
+                                  item_cap=12, chunk=8, dtype="float64",
+                                  seed=1), device=dev)
+    V0 = m.V[:9].cpu().numpy()
+    U1 = m._sweep(m.V, m._u_idx_d, m._u_rat_d, m._lam, m._alpha)[:12]
+    want = np.zeros((12, 4))
+    for u in range(12):
+        Cu = 1.0 + 5.0 * R[u]
+        want[u] = np.linalg.solve(V0.T @ np.diag(Cu) @ V0 + 0.3 * np.eye(4),
+                                  V0.T @ (Cu * (R[u] > 0)))
+    err = float(np.abs(U1.cpu().numpy() - want).max())
+    log(f"[card vs cpu] ALS user sweep against the dense oracle, float64: "
+        f"max abs err {err:.3e}")
+    if not err < 1e-8:
+        fail(f"ALS user sweep on the card is {err:.3e} from the dense oracle")
+    for dt in (torch.float32, torch.float64):
+        X = torch.randn(512, 64, 70, dtype=dt, device=dev)
+        S = X @ X.transpose(1, 2) + 64 * torch.eye(64, dtype=dt, device=dev)
+        iu = torch.triu_indices(64, 64, 1, device=dev)
+        Sn = S.clone()
+        Sn[:, iu[0], iu[1]] = float("nan")
+        if not torch.equal(dense.batched_cholesky(Sn),
+                           dense.batched_cholesky(S)):
+            fail(f"batched_cholesky read above the diagonal ({dt})")
+    log("[card vs cpu] batched_cholesky at (512, 64), f32 and f64: NaN "
+        "above the diagonal, factor bit for bit the clean input's")
+    # the streaming engines at 12^3
+    cfg = Config(dtype="float64")
+    for lu, M in ((False, generate.laplacian_3d(GRID_CPU)),
+                  (True, unsym_laplacian(GRID_CPU))):
+        kind = StreamingLU if lu else StreamingCholesky
+        sg = kind(M, cfg, stage_elems=STREAM_STAGE_ELEMS_CPU, device=dev)
+        fg = sg.factorize(M)
+        fc = kind(M, cfg, stage_elems=STREAM_STAGE_ELEMS_CPU,
+                  device="cpu").factorize(M)
+        for name, g, c in zip(("Lx", "Ux") if lu else ("L",),
+                              factor_arrays(fg), factor_arrays(fc)):
+            r = float((g - c).abs().max() / c.abs().max())
+            log(f"[card vs cpu] stream {'LU unsym' if lu else 'Cholesky'} "
+                f"{GRID_CPU}^3 f64, {len(sg.stages)} stages, {name} max rel "
+                f"diff {r:.3e}")
+            if not r <= 1e-10:
+                fail(f"streamed card and CPU factors ({name}) differ by "
+                     f"{r:.3e}")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -2216,6 +2564,13 @@ def main(argv) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     mark("2 build")
+
+    # phase 4h's interactions, generated meanwhile in a spawned worker
+    import concurrent.futures
+    import multiprocessing
+    als_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    als_data = als_pool.submit(generate_als_data, ALS_SHAPE)
 
     # 3. kernels against their plain versions, at the 48^3 plans' calls
     A = generate.laplacian_3d(GRID)
@@ -2417,6 +2772,7 @@ def main(argv) -> int:
     graph_paths = {}
     device_ms = {}
     defaults = {}       # kind -> (the default factor's arrays, steady wall)
+    incore_peak = {}    # kind -> the default path's peak memory rise, GB
     for lu, c, kind in ((False, ctx, "cholesky"), (True, lctx, "lu")):
         for mode in (None, "lanes", "wide"):
             path = kind if mode is None else f"{kind}_{mode}"
@@ -2428,6 +2784,7 @@ def main(argv) -> int:
                     extras=("graph", "solve") if mode is None else ())
                 if mode is None:
                     defaults[kind] = (factor_arrays(fp), rp["factorize_s"])
+                    incore_peak[kind] = rp["peak_rise_gb"]
                 del fp
                 if "--profile" in argv:
                     device_ms[path] = profile_pass(
@@ -2504,10 +2861,24 @@ def main(argv) -> int:
             f"beside the default config's {defaults[kind][1]:.4f} s")
         del hc, fh
         torch.cuda.empty_cache()
+    mark("4f")
+
+    # 4g. the stage-streamed engines at 48^3 f32, on the 48^3 analysis: the
+    # walks of the default path over rebased stage buffers
+    paths.update(streaming_phase(A, ctx.sym, defaults, incore_peak, dev))
     del ctx, lctx, defaults
     torch.cuda.empty_cache()
 
-    mark("4f")
+    mark("4g")
+
+    # 4h. the recommender at als_bench's full width, the "20m" shape with a
+    # fifth of its users
+    recommender_phase(dev, als_data)
+    als_pool.shutdown()
+    del als_data
+    torch.cuda.empty_cache()
+
+    mark("4h")
 
     # 5. f64 at 32^3; 5c. the same under lanes, without refinement
     A32 = generate.laplacian_3d(GRID_F64)
@@ -2653,6 +3024,14 @@ def main(argv) -> int:
         f"({time.perf_counter() - t0:.1f} s)")
 
     mark("6h")
+
+    # 6i. the recommender and the stage-streamed engines, card against CPU
+    t0 = time.perf_counter()
+    card_vs_cpu_recsys_stream(dev)
+    log(f"[card vs cpu] recommender and streaming engines "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    mark("6i")
 
     # 6e. the surfaces: CLI, checkpoints, profile scope
     t0 = time.perf_counter()

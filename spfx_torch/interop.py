@@ -73,3 +73,17 @@ def plan_arrays(plan) -> dict:
                     if v is not None:
                         out[pre + name] = np.asarray(v)
     return out
+
+
+def als_tables_from_numpy(model, U, V):
+    """Put a trained JAX ``ALSModel``'s tables (``np.asarray(m.U)``,
+    ``np.asarray(m.V)``, padding rows included) into a port ``ALSModel``
+    built on the same data and config; returns the model."""
+    for name, new, old in (("U", U, model.U), ("V", V, model.V)):
+        new = np.asarray(new)
+        if new.shape != tuple(old.shape):
+            raise ValueError(f"{name} has shape {new.shape}, the model's "
+                             f"table is {tuple(old.shape)}")
+        setattr(model, name, torch.tensor(new.astype(model.config.dtype),
+                                          device=model.device))
+    return model
