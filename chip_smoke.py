@@ -131,6 +131,22 @@ non-zero):
    every interaction (a second model: the bench's item cap of 512 drops
    the most popular items' interactions), peak memory, one iteration's
    device-busy share;
+4i. the multi-device engines at full width in a world of one NCCL rank
+   (spfx_torch.dist; a file rendezvous in a temporary directory):
+   ShardedCholesky, ShardedLU, SubtreeCholesky and SubtreeLU at 48^3 f32
+   with the default Config on the 48^3 analysis: the first and three
+   steady factorizations' launches by kernel (rows 1, 3 or 4 and 5:
+   window_gather2, potrf_inv or getrf_inv, extend_add_rows) against the
+   plans' prediction (the subtree engine's local phase is a MegaRunner
+   graph: captured at the first, replayed after), their all-reduces by
+   count and bytes against the plan's, the first and steady walls, the
+   peak memory rise beside the in-core path's, the refined residual
+   (<= 1e-12) and the factor within 1e-5 of the in-core graph factor's
+   largest entry (phases 4 and 4b; flat for the sharded engines, through
+   L_sparse / LU_sparse for the subtree ones); then ALSModel over the
+   group's mesh on phase 4h's data and config, its fit_steps captured
+   over NCCL: its slope per iteration beside 4h's and its tables after
+   the same iterations within 1e-5 of 4h's;
 5. f64: laplacian_3d(32) with Config(dtype="float64"), residual <= 1e-12,
    with the device solve report;
 5b. f64 LU at 32^3 with unsymmetric values (every entry above the diagonal
@@ -161,6 +177,13 @@ non-zero):
    batched Cholesky with NaN above the diagonal; then StreamingCholesky and
    StreamingLU at 12^3 f64 (2^15 values a stage), card against CPU within
    1e-10;
+6j. two ranks on the one card (NCCL refuses two ranks on one GPU, so two
+   spawned processes join a gloo group over CUDA tensors on cuda:0): the
+   four multi-device engines at 16^3 f64 (LU on unsymmetric values) and
+   the recommender's "100k" shape at rank 64, f64 fit_steps(2); every
+   rank's factors and tables within 1e-10 of the CPU's and of the card's
+   in the world of one NCCL rank (phase 4i's group); every rank's launch
+   counters non-zero for each kernel of the path;
 6e. the surfaces at 12^3: the CLI (both kinds, factors saved), the saved
    factors loaded onto the card and solved (host and device solve), and
    the profile scope's trace; the CLI on complex .mtx files (complex64,
@@ -2316,6 +2339,8 @@ def recommender_phase(dev, als_data) -> dict:
     full_implicit_loss below the seeded tables'; recall@20 and NDCG@10
     beside the popularity baseline; the peak device memory; one
     iteration's profiled device time over its wall (the busy share).
+    Returns the report and phase 4i's reference: (train, U, V, the slope
+    per iteration), the tables whole after the slope's iterations.
 
     The bench's item cap of 512 drops the interactions of the most
     popular items past their 512th (their rows are cut), and implicit ALS
@@ -2344,6 +2369,8 @@ def recommender_phase(dev, als_data) -> dict:
     setup_s = time.perf_counter() - t0
     loss0 = m.full_implicit_loss()
     per_iter, t = slope(m, ALS_ITERS)
+    # phase 4i's reference: the tables after the slope's iterations
+    ref = (train, *(x.clone() for x in m.full_tables()), per_iter)
     peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
     U, V = m.U, m.V
     if not (bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())):
@@ -2405,7 +2432,7 @@ def recommender_phase(dev, als_data) -> dict:
                peak_rise_gb=peak, iteration_wall_ms=wall_ms,
                iteration_device_ms=dev_ms, busy=dev_ms / wall_ms)
     log("[recommender] " + json.dumps(rep))
-    return rep
+    return rep, ref
 
 
 def card_vs_cpu_recsys_stream(dev) -> None:
@@ -2497,6 +2524,359 @@ def card_vs_cpu_recsys_stream(dev) -> None:
             if not r <= 1e-10:
                 fail(f"streamed card and CPU factors ({name}) differ by "
                      f"{r:.3e}")
+
+
+# --------------------------------------------------------------------------
+# phase 4i: the multi-device engines in a world of one NCCL rank; 6j: two
+# gloo ranks on the one card
+# --------------------------------------------------------------------------
+
+MULTI_GRID = 16                    # phase 6j's matrices, laplacian_3d(16)
+MULTI_RANKS = 2                    # phase 6j's ranks on the one card
+MULTI_ENGINES = (("sharded", False), ("sharded", True), ("subtree", False),
+                 ("subtree", True))
+
+
+def start_group(backend: str = "nccl") -> str:
+    """A process group of this process alone (a world of one rank) over
+    ``backend``, meeting at a file in a fresh temporary directory; returns
+    the directory."""
+    import tempfile
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="spfx_group_")
+    dist.init_process_group(backend, init_method="file://"
+                            + os.path.join(tmp, "rdv"), world_size=1, rank=0)
+    return tmp
+
+
+def engine_class(name: str, lu: bool):
+    from spfx_torch import dist
+    return {("sharded", False): dist.ShardedCholesky,
+            ("sharded", True): dist.ShardedLU,
+            ("subtree", False): dist.SubtreeCholesky,
+            ("subtree", True): dist.SubtreeLU}[name, lu]
+
+
+def multidevice_predicted(ctx, first: bool) -> dict:
+    """Launches of one factorization of a sharded or subtree context in a
+    world of one rank. The sharded walk launches what the in-core eager
+    walk does. The subtree engine's top phase launches that for the top
+    plan, and its local phase (a MegaRunner over the rank's plan) twice
+    that for the local plan at the first factorization (warm-up and
+    capture) and nothing after it (one replay)."""
+    import types
+    if not hasattr(ctx, "top_plan"):
+        return predicted_launches(ctx)
+    of = lambda plan: predicted_launches(types.SimpleNamespace(
+        plan=plan, config=ctx.config, lu=ctx.lu))
+    want = of(ctx.top_plan)
+    if first:
+        loc = of(ctx.local_plan)
+        want = {k: v + 2 * loc[k] for k, v in want.items()}
+    return want
+
+
+def all_reduces_predicted(ctx) -> int:
+    """All-reduces of one factorization: per factor array, one a level
+    phase that has buckets (the subtree engine's over its top plan, and
+    its merge)."""
+    plan = getattr(ctx, "top_plan", ctx.plan)
+    n = sum(bool(lp.updates) + bool(lp.panels) for lp in plan.levels)
+    n += hasattr(ctx, "top_plan")
+    return n * (2 if ctx.lu else 1)
+
+
+def sparse_factors(f):
+    """A factor's triangles as scipy matrices: (L,), or LU's (L, U)."""
+    return f.LU_sparse() if hasattr(f, "Ux") else (f.L_sparse(),)
+
+
+def sparse_rel(a, b) -> float:
+    """max |a - b| over max |b|, of two sparse matrices."""
+    return float(abs(a - b).max() / abs(b).max())
+
+
+def multidevice_phase(A, sym, defaults: dict, incore_peak: dict, dev,
+                      als_ref, repeats: int = 3) -> dict:
+    """4i. The multi-device engines at full width in a world of one NCCL
+    rank (``start_group``): ShardedCholesky, ShardedLU, SubtreeCholesky
+    and SubtreeLU at 48^3 f32 with the default Config on the 48^3
+    analysis. For each: the first factorization's launches by kernel
+    against ``multidevice_predicted`` and its all-reduces (count and
+    bytes) against ``all_reduces_predicted``; ``repeats`` steady
+    factorizations with the same checks (median wall); the peak device
+    memory above the start beside the in-core path's; the refined
+    residual (<= 1e-12); the factor against the in-core graph factor
+    (phase 4 / 4b, ``defaults``) within 1e-5 of its largest entry, flat
+    for the sharded engines (the same plan) and through L_sparse /
+    LU_sparse for the subtree ones (their layout groups the supernodes
+    by owner). Then ALSModel over the group's mesh on phase 4h's data and
+    config: the slope per iteration beside 4h's, and the tables after the
+    slope's iterations within 1e-5 of 4h's (``als_ref``). Returns {path:
+    launches of the first factorization}."""
+    import torch
+    from spfx_torch import Config, scaled_residual, synth_rhs
+    from spfx_torch.bench.als_bench import BENCH_CONFIG, slope
+    from spfx_torch.chol.factorize import CholeskyFactor
+    from spfx_torch.dist import make_mesh
+    from spfx_torch.dist import mesh as dmesh
+    from spfx_torch.kernels import _cuda, route
+    from spfx_torch.lu.factorize import LUFactor
+    from spfx_torch.recsys.als import ALSModel
+    mesh = make_mesh("d")
+    if mesh.size != 1 or mesh.group is None or mesh.device != dev:
+        fail(f"multidevice: the group's mesh is {mesh}")
+    paths, plans = {}, {}
+    for name, lu in MULTI_ENGINES:
+        key = "lu" if lu else "cholesky"
+        label = f"{name} {key} {GRID}^3 float32"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ctx = engine_class(name, lu)(A, Config(), mesh=mesh, sym=sym)
+        setup_s = time.perf_counter() - t0
+        if name == "sharded":
+            plans[key] = ctx.plan          # the in-core plan
+        nar = all_reduces_predicted(ctx)
+        nbytes = nar * ctx.plan.storage * 4
+        runs = []
+        for i in range(1 + repeats):
+            want = multidevice_predicted(ctx, first=i == 0)
+            _cuda.reset_launch_counts()
+            dmesh.reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = ctx.factorize(A)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            launches, coll = _cuda.launch_counts(), \
+                dmesh.collective_counts()
+            if i == 0:
+                first_launches = launches
+            if launches != want:
+                fail(f"{label}: factorization {i} launched {launches}, the "
+                     f"plans predict {want}")
+            if (coll["all_reduce"], coll["all_reduce_bytes"]) \
+                    != (nar, nbytes):
+                fail(f"{label}: factorization {i} made {coll}; the plan "
+                     f"predicts {nar} all-reduces of {nbytes} bytes")
+        diag = "getrf_inv" if lu else "potrf_inv"
+        if not all(first_launches[k] > 0 for k in ("window_gather2", diag,
+                                                   "extend_add_rows")):
+            fail(f"{label}: a kernel of the path was not launched: "
+                 f"{first_launches}")
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+        if not all(bool(torch.isfinite(t).all()) for t in factor_arrays(f)):
+            fail(f"{label}: factor has non-finite values")
+        b = synth_rhs(A)
+        res = scaled_residual(A, f.solve(b), b)
+        ref = defaults[key][0]
+        names = ("Lx", "Ux") if lu else ("L",)
+        t0 = time.perf_counter()
+        if name == "sharded":
+            dist = {n: max_diff(a, r) / float(r.abs().max())
+                    for n, a, r in zip(names, factor_arrays(f), ref)}
+        else:
+            incore = LUFactor(A, sym, plans[key], *ref, Config()) if lu \
+                else CholeskyFactor(A, sym, plans[key], ref[0], Config())
+            dist = {n: sparse_rel(a, r) for n, a, r in zip(
+                ("L", "U") if lu else ("L",), sparse_factors(f),
+                sparse_factors(incore))}
+            del incore
+        compare_s = time.perf_counter() - t0
+        steady = statistics.median(runs[1:])
+        rep = dict(engine=type(ctx).__name__, ranks=mesh.size,
+                   backend="nccl", setup_s=setup_s,
+                   plan_s=ctx.plan_time, first_factorize_s=runs[0],
+                   factorize_s=steady, factorize_all_s=runs,
+                   incore_factorize_s=defaults[key][1],
+                   all_reduce=nar, all_reduce_bytes=nbytes,
+                   all_reduce_gb=nbytes / 1e9,
+                   launches_by_row={k: first_launches[k] for k in (
+                       "window_gather2", diag, "extend_add_rows")},
+                   launches=first_launches,
+                   steady_launches=multidevice_predicted(ctx, first=False),
+                   peak_rise_gb=peak, incore_peak_rise_gb=incore_peak[key],
+                   residual=res, vs_incore=dist, compare_s=compare_s,
+                   levels=len(ctx.plan.levels))
+        if name == "subtree":
+            rep.update(local_flops=ctx.local_flops, top_flops=ctx.top_flops,
+                       top_levels=ctx.top_levels,
+                       local_levels=len(ctx.local_plan.levels),
+                       local_capture=ctx._runner.captures.get(
+                           route.panel_mode()))
+        log(f"[{label}] " + json.dumps(rep))
+        if not res <= 1e-12:
+            fail(f"{label}: scaled residual {res:.3e} > 1e-12")
+        if not all(d <= 1e-5 for d in dist.values()):
+            fail(f"{label}: {dist} of the largest entry from the in-core "
+                 "graph factor's (limit 1e-5)")
+        paths[f"{key}_{name}"] = first_launches
+        del ctx, f
+        torch.cuda.empty_cache()
+    # the recommender over the group's mesh, against phase 4h's model
+    train, U4h, V4h, per_iter4h = als_ref
+    dmesh.reset_collective_counts()
+    m = ALSModel(train, BENCH_CONFIG, mesh=mesh)
+    per_iter, t = slope(m, ALS_ITERS)
+    coll = dmesh.collective_counts()
+    U, V = m.full_tables()
+    dist = {n: max_diff(x, r) / float(r.abs().max())
+            for n, x, r in (("U", U, U4h), ("V", V, V4h))}
+    rep = dict(ranks=mesh.size, backend="nccl", graphs=m._fit_steps.graphs,
+               capture=m._fit_steps.capture, fit_steps_s=t,
+               per_iter_s=per_iter, per_iter_4h_s=per_iter4h,
+               examples_per_sec=train.nnz * 2 / per_iter,
+               all_gathers_counted=coll["all_gather"], vs_4h=dist)
+    log("[multidevice recommender] " + json.dumps(rep))
+    if not m._fit_steps.graphs:
+        fail("multidevice recommender: fit_steps did not capture over NCCL")
+    if not all(d <= 1e-5 for d in dist.values()):
+        fail(f"multidevice recommender: tables {dist} of the largest entry "
+             "from phase 4h's (limit 1e-5)")
+    del m, U, V
+    torch.cuda.empty_cache()
+    return paths
+
+
+def multi_rank_cases(mesh, grid: int) -> dict:
+    """6j's work on one rank of ``mesh``: the four engines at
+    laplacian_3d(grid) in float64 (LU on ``unsym_laplacian``'s values), and
+    the recommender's "100k" shape at rank 64 in float64, fit_steps(2).
+    Returns numpy arrays: the sharded factors flat, the subtree factors
+    as CSC parts, the whole tables, and the launch counts."""
+    import dataclasses
+    import numpy as np
+    from spfx_torch import Config
+    from spfx_torch.bench.als_bench import BENCH_CONFIG
+    from spfx_torch.bench.kernel_probe import unsym_laplacian
+    from spfx_torch.io import generate
+    from spfx_torch.kernels import _cuda
+    from spfx_torch.recsys import data as rdata
+    from spfx_torch.recsys.als import ALSModel
+    out = {}
+    A, Au = generate.laplacian_3d(grid), unsym_laplacian(grid)
+    _cuda.reset_launch_counts()
+    for name, lu in MULTI_ENGINES:
+        M = Au if lu else A
+        f = engine_class(name, lu)(M, Config(dtype="float64"),
+                                   mesh=mesh).factorize(M)
+        tag = f"{name}_{'lu' if lu else 'cholesky'}"
+        if name == "sharded":
+            for n, a in zip(("Lx", "Ux") if lu else ("L",), factor_arrays(f)):
+                out[f"{tag}/{n}"] = a.cpu().numpy()
+        else:
+            for n, S in zip(("L", "U"), sparse_factors(f)):
+                S = S.tocsc()
+                for part in ("data", "indices", "indptr"):
+                    out[f"{tag}/{n}.{part}"] = getattr(S, part)
+    out["launches"] = np.asarray(json.dumps(_cuda.launch_counts()))
+    inter = rdata.synthetic(943, 1682, avg_degree=106, rank=12, seed=0)
+    m = ALSModel(inter, dataclasses.replace(BENCH_CONFIG, dtype="float64"),
+                 mesh=mesh)
+    m.fit_steps(2)
+    out["als/U"], out["als/V"] = (t.cpu().numpy() for t in m.full_tables())
+    return out
+
+
+def multi_rank_worker(rank: int, tmp: str) -> None:
+    """One of 6j's ranks: joins a gloo group of MULTI_RANKS on cuda:0,
+    runs ``multi_rank_cases`` and writes them to ``tmp``."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch.distributed as dist
+    from spfx_torch.dist import init_distributed, make_mesh
+    init_distributed(coordinator="file://" + os.path.join(tmp, "rdv"),
+                     num_processes=MULTI_RANKS, process_id=rank,
+                     device="cuda:0", backend="gloo")
+    mesh = make_mesh("d")
+    out = multi_rank_cases(mesh, MULTI_GRID)
+    out["mesh"] = np.asarray([mesh.size, mesh.rank])
+    np.savez(os.path.join(tmp, f"r{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def start_ranks() -> tuple:
+    """Start 6j's MULTI_RANKS rank processes (``multi_rank_worker``), which
+    run while the card-against-CPU phases do; returns (processes, their
+    directory, the start time)."""
+    import multiprocessing
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="spfx_ranks_")
+    ctxm = multiprocessing.get_context("spawn")
+    procs = [ctxm.Process(target=multi_rank_worker, args=(r, tmp))
+             for r in range(MULTI_RANKS)]
+    for p in procs:
+        p.start()
+    return procs, tmp, time.perf_counter()
+
+
+def multi_rank_phase(ranks) -> dict:
+    """6j. MULTI_RANKS ranks on the one card: NCCL refuses two ranks on one
+    GPU, so spawned processes (``start_ranks``) join a gloo group over
+    CUDA tensors on cuda:0 (``multi_rank_worker``). Each runs
+    ``multi_rank_cases`` at MULTI_GRID^3 f64; every rank's results are
+    held to the CPU's (the same cases on a CPU mesh of one device) and to
+    the card's in a world of one NCCL rank (this process's group), within
+    1e-10 of the largest entry: the sharded factors flat, the subtree
+    factors through L_sparse / LU_sparse, the tables whole. Each rank's
+    launch counters must be non-zero for every kernel of the path.
+    Returns {path: launches} per rank."""
+    import numpy as np
+    import scipy.sparse as sp
+    from spfx_torch.dist import make_mesh
+    procs, tmp, t0 = ranks
+    refs = {"cpu": multi_rank_cases(make_mesh(devices=["cpu"]), MULTI_GRID),
+            "card, one NCCL rank": multi_rank_cases(make_mesh("d"),
+                                                    MULTI_GRID)}
+    for p in procs:
+        p.join(600)
+        if p.exitcode != 0:
+            fail(f"multi-rank: a rank exited with {p.exitcode}")
+    ranks_s = time.perf_counter() - t0
+
+    def as_sparse(res, key):
+        shape = (MULTI_GRID ** 3,) * 2
+        return sp.csc_matrix((res[f"{key}.data"], res[f"{key}.indices"],
+                              res[f"{key}.indptr"]), shape=shape)
+
+    paths, worst = {}, {}
+    for r in range(MULTI_RANKS):
+        with np.load(os.path.join(tmp, f"r{r}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        if list(got["mesh"]) != [MULTI_RANKS, r]:
+            fail(f"multi-rank: rank {r}'s mesh is {got['mesh']}")
+        for ref_name, ref in refs.items():
+            for key in ref:
+                if key == "launches" or key.endswith((".indices",
+                                                      ".indptr")):
+                    continue
+                if key.endswith(".data"):
+                    k = key[:-len(".data")]
+                    d = sparse_rel(as_sparse(got, k), as_sparse(ref, k))
+                else:
+                    k = key
+                    d = float(np.abs(got[k] - ref[k]).max()
+                              / np.abs(ref[k]).max())
+                worst[(ref_name, k)] = max(worst.get((ref_name, k), 0.0), d)
+                if not d <= 1e-10:
+                    fail(f"multi-rank: rank {r}'s {k} is {d:.3e} of the "
+                         f"largest entry from the {ref_name} result's")
+        launches = json.loads(str(got["launches"]))
+        for k in ("window_gather2", "extend_add_rows", "potrf_inv",
+                  "getrf_inv"):
+            if not launches[k] > 0:
+                fail(f"multi-rank: rank {r} launched no {k}: {launches}")
+        paths[f"ranks{MULTI_RANKS}_r{r}"] = launches
+    log(f"[multi-rank] {MULTI_RANKS} gloo ranks on cuda:0, {MULTI_GRID}^3 "
+        f"f64 (four engines) and the 100k recommender at rank 64: max rel "
+        "diff " + json.dumps({f"{a} {b}": v for (a, b), v in worst.items()})
+        + " launches " + json.dumps(paths)
+        + f" ({ranks_s:.1f} s from the ranks' start, beside phases 6-6i)")
+    return paths
 
 
 def card_line() -> str:
@@ -2866,19 +3246,31 @@ def main(argv) -> int:
     # 4g. the stage-streamed engines at 48^3 f32, on the 48^3 analysis: the
     # walks of the default path over rebased stage buffers
     paths.update(streaming_phase(A, ctx.sym, defaults, incore_peak, dev))
-    del ctx, lctx, defaults
+    sym48 = ctx.sym
+    del ctx, lctx
     torch.cuda.empty_cache()
 
     mark("4g")
 
     # 4h. the recommender at als_bench's full width, the "20m" shape with a
     # fifth of its users
-    recommender_phase(dev, als_data)
+    _, als_ref = recommender_phase(dev, als_data)
     als_pool.shutdown()
     del als_data
     torch.cuda.empty_cache()
 
     mark("4h")
+
+    # 4i. the multi-device engines and the row-sharded recommender in a
+    # world of one NCCL rank, against phases 4, 4b and 4h
+    import torch.distributed as dist
+    start_group("nccl")
+    paths.update(multidevice_phase(A, sym48, defaults, incore_peak, dev,
+                                   als_ref))
+    del defaults, als_ref, sym48
+    torch.cuda.empty_cache()
+
+    mark("4i")
 
     # 5. f64 at 32^3; 5c. the same under lanes, without refinement
     A32 = generate.laplacian_3d(GRID_F64)
@@ -2918,6 +3310,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     mark("5, 5b, 5c and 5d")
+
+    # 6j's ranks start here and run beside the card-against-CPU phases
+    ranks = start_ranks()
 
     # 6. the card against the CPU (plain versions), 12^3 f64, Cholesky and
     # (6b) LU with unsymmetric values, both flat factors; 6c. the same
@@ -3032,6 +3427,13 @@ def main(argv) -> int:
         f"({time.perf_counter() - t0:.1f} s)")
 
     mark("6i")
+
+    # 6j. two gloo ranks on the one card, against the CPU and the world of
+    # one NCCL rank
+    paths.update(multi_rank_phase(ranks))
+    dist.destroy_process_group()
+
+    mark("6j")
 
     # 6e. the surfaces: CLI, checkpoints, profile scope
     t0 = time.perf_counter()

@@ -15,7 +15,9 @@ Port of spfx/bench/als_bench.py. The harness
 - prints the card's name and power limit (nvidia-smi) on a line of its
   own, then one JSON line with the JAX bench's keys.
 
-Run: python -m spfx_torch.bench.als_bench   (on the CUDA device)
+Run: python -m spfx_torch.bench.als_bench   (on the CUDA device; N ranks:
+one process each with SPFX_NUM_PROCESSES=N, SPFX_PROCESS_ID=r and
+SPFX_COORDINATOR=host:port, which also reports ``scaling()``)
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from spfx_torch.dist.mesh import make_mesh
+from spfx_torch.dist.mesh import init_distributed, make_mesh
 from spfx_torch.recsys import data as rdata
 from spfx_torch.recsys.als import ALSModel, ALSConfig
 
@@ -113,15 +115,18 @@ def run(scale: str = "100k", iters: int = 8, mesh=None) -> dict:
     return out
 
 
-def scaling() -> dict:
-    """examples/s on a 1-device mesh vs the full mesh (same problem); a
-    mesh of more than one device raises until ROADMAP Queue 1 item 9."""
-    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    one = run(mesh=make_mesh(devices=devs[:1]), iters=4)
-    if len(devs) == 1:
+def scaling(scale: str = "100k", device=None) -> dict:
+    """examples/s of this rank alone (a one-device mesh) against the
+    process group's mesh of every rank, on the same problem; on one rank
+    the efficiency is 1.0. Every rank of the group calls it. ``device``:
+    this rank's, when not the group's or the CUDA device."""
+    full_mesh = make_mesh(devices=None if device is None else [device])
+    one = run(scale, mesh=make_mesh(devices=[full_mesh.device]), iters=4)
+    if full_mesh.size == 1:
         return {"scaling_efficiency": 1.0, "single": one}
-    full = run(mesh=make_mesh(devices=devs), iters=4)
-    eff = full["examples_per_sec"] / (one["examples_per_sec"] * len(devs))
+    full = run(scale, mesh=full_mesh, iters=4)
+    eff = full["examples_per_sec"] / (one["examples_per_sec"]
+                                      * full_mesh.size)
     out = {"scaling_efficiency": eff, "single": one, "full": full}
     log(json.dumps({"scaling_efficiency": eff}))
     return out
@@ -130,8 +135,9 @@ def scaling() -> dict:
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("als_bench: no CUDA device")
+    init_distributed()
     print(card_line(), flush=True)
     print(json.dumps(run(scale=os.environ.get("SPFX_ALS_SCALE", "100k"))),
           flush=True)
-    if torch.cuda.device_count() > 1:
-        scaling()
+    if make_mesh().size > 1:
+        scaling(os.environ.get("SPFX_ALS_SCALE", "100k"))

@@ -213,6 +213,40 @@ def refined_solve(solve1, A, config: Config, b, refine: int | None):
     return x
 
 
+def entry_values(sym: Symbolic, A: sp.spmatrix, dtype: str, device,
+                 lu: bool = False) -> tuple:
+    """The permuted lower-triangle entry values of A on ``device`` (LU: and
+    the strict upper triangle's, transposed), in ``dtype``."""
+    Ap = sp.csc_matrix(A)[sym.perm][:, sym.perm]
+    parts = [sp.tril(Ap).tocsc()] + ([sp.tril(Ap.T, -1).tocsc()] if lu
+                                      else [])
+    return tuple(torch.as_tensor(m.data.astype(dtype), device=device)
+                 for m in parts)
+
+
+def lower_entries(sym: Symbolic, plan: FactorPlan) -> tuple:
+    """(rows, cols, flat positions) of every entry on or below the diagonal
+    of the factor's panels: supernode s's column c1 + c, row r lies at
+    offsets[s] + r' * strides[s] + c in its row-major panel, r' being r's
+    storage row (below rows shifted by ``plan.below_shift``)."""
+    rows, cols, pos = [], [], []
+    shift = plan.below_shift
+    for s in range(sym.nsuper):
+        c1, c2 = sym.sn_start[s], sym.sn_start[s + 1]
+        rr = sym.sn_row_list(s)
+        w = c2 - c1
+        sr = np.arange(len(rr))
+        if shift is not None:
+            sr = sr + np.where(sr >= w, shift[s], 0)
+        cc = c1 + np.arange(w)
+        keep = rr[:, None] >= cc[None, :]               # (rows, w)
+        rows.append(np.broadcast_to(rr[:, None], keep.shape)[keep])
+        cols.append(np.broadcast_to(cc[None, :], keep.shape)[keep])
+        pos.append((plan.offsets[s] + sr[:, None] * int(plan.strides[s])
+                    + np.arange(w)[None, :])[keep])
+    return tuple(np.concatenate(x) for x in (rows, cols, pos))
+
+
 class CholeskyFactor:
     """Factorized P A P^T = L L^T: the flat panel tensor ``L`` on the
     context's device, with the host or the device solve."""
@@ -269,29 +303,9 @@ class CholeskyFactor:
 
     def L_sparse(self) -> sp.csc_matrix:
         """Reconstruct L (of P A P^T) as scipy CSC — test/debug path."""
-        sym = self.sym
-        Lh = self.host_factor()
-        rows, cols, vals = [], [], []
-        shift = self.plan.below_shift
-        for s in range(sym.nsuper):
-            c1, c2 = sym.sn_start[s], sym.sn_start[s + 1]
-            rr = sym.sn_row_list(s)
-            R = len(rr)
-            w = c2 - c1
-            wp = int(self.plan.strides[s])
-            off = self.plan.offsets[s]
-            sr = np.arange(R)
-            if shift is not None:
-                sr = sr + np.where(sr >= w, shift[s], 0)
-            for c in range(w):
-                v = Lh[off + sr * wp + c]              # row-major panel
-                keep = rr >= c1 + c
-                rows.append(rr[keep])
-                cols.append(np.full(keep.sum(), c1 + c))
-                vals.append(v[keep])
-        return sp.csc_matrix(
-            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-            shape=(sym.n, sym.n))
+        rows, cols, pos = lower_entries(self.sym, self.plan)
+        return sp.csc_matrix((self.host_factor()[pos], (rows, cols)),
+                             shape=(self.sym.n, self.sym.n))
 
     def logdet(self) -> float:
         """log det(A) = 2 * sum(log diag(L)) — uses valid diagonal slots
@@ -334,10 +348,7 @@ class Cholesky:
     def entry_values(self, A: sp.spmatrix) -> torch.Tensor:
         """Permuted lower-triangle entry values — the only data that crosses
         the host->device link per factorization."""
-        Ap = sp.csc_matrix(A)[self.sym.perm][:, self.sym.perm]
-        low = sp.tril(Ap).tocsc()
-        return torch.as_tensor(low.data.astype(self.config.dtype),
-                               device=self.device)
+        return entry_values(self.sym, A, self.config.dtype, self.device)[0]
 
     def factorize(self, A: sp.spmatrix) -> CholeskyFactor:
         from spfx_torch.utils.instrument import finish_factorize, profile_scope

@@ -77,13 +77,15 @@ def plan_arrays(plan) -> dict:
 
 def als_tables_from_numpy(model, U, V):
     """Put a trained JAX ``ALSModel``'s tables (``np.asarray(m.U)``,
-    ``np.asarray(m.V)``, padding rows included) into a port ``ALSModel``
-    built on the same data and config; returns the model."""
-    for name, new, old in (("U", U, model.U), ("V", V, model.V)):
+    ``np.asarray(m.V)``, whole, padding rows included) into a port
+    ``ALSModel`` built on the same data and config (each rank keeps its
+    block); returns the model."""
+    for name, new, rows in (("U", U, model.nu), ("V", V, model.ni)):
         new = np.asarray(new)
-        if new.shape != tuple(old.shape):
+        want = (rows, model.config.rank)
+        if new.shape != want:
             raise ValueError(f"{name} has shape {new.shape}, the model's "
-                             f"table is {tuple(old.shape)}")
-        setattr(model, name, torch.tensor(new.astype(model.config.dtype),
-                                          device=model.device))
+                             f"table is {want}")
+        setattr(model, name, model._shard.local(torch.tensor(
+            new.astype(model.config.dtype), device=model.device)))
     return model

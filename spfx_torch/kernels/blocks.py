@@ -171,21 +171,29 @@ def _chol_deltas_blocks(Draw, Braw, widths, nbelow, cp: int, rbp: int,
     return _chol_deltas_blocked(Draw, Braw, widths, nbelow, cp, rbp)
 
 
+def _panel_block(L, slab_lo: int, B: int, cp: int, rbp: int):
+    """The (B, cp + rbp, cp) block of a uniform panel bucket's B tasks."""
+    return L[slab_lo:slab_lo + B * (cp + rbp) * cp].view(B, cp + rbp, cp)
+
+
 def factor_panels_chol_u(L, widths, nbelow, slab_lo: int, cp: int, rbp: int,
-                         mode: str = "blocked"):
+                         mode: str = "blocked", out=None):
     """Factor one uniform panel bucket IN PLACE: the bucket's B panels are
     contiguous at [slab_lo, slab_lo + B*(cp+rbp)*cp) with task stride
     (cp+rbp)*cp (see PanelBucketC). ``mode`` is the panel-kernel mode
-    (``route.panel_mode()``)."""
+    (``route.panel_mode()``). With ``out`` (a flat array of L's layout)
+    the deltas are added there and L is only read; returns the array
+    written."""
     B = widths.shape[0]
-    S = (cp + rbp) * cp
-    blk = L[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
+    out = L if out is None else out
+    blk = _panel_block(L, slab_lo, B, cp, rbp)
     dd, db = _chol_deltas_blocks(blk[:, :cp, :], blk[:, cp:, :],
                                  widths, nbelow, cp, rbp, mode)
-    blk[:, :cp, :] += dd
+    tgt = _panel_block(out, slab_lo, B, cp, rbp)
+    tgt[:, :cp, :] += dd
     if rbp:
-        blk[:, cp:, :] += db
-    return L
+        tgt[:, cp:, :] += db
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -239,18 +247,20 @@ def slab_view(L, slab_lo: int, srows: int, csp: int):
 
 def apply_updates_sym_t(L, kw, mrows, rstart, src_start, head_start,
                         slab_lo: int, tgt_rows, tgt_cpos, mp: int, kp: int,
-                        csp: int, srows: int):
+                        csp: int, srows: int, out=None):
     """One UT update step, in place: update rows E (B, rows, csp), then one
     ``extend_add.extend_add_rows`` launch that subtracts E's valid rows
     from the slab of L at slab_lo (``slab_view``): E row i lands on slab
     row tgt_rows[i] (the bucket's flat ``tgt_lrow``, -1 drops the row).
     Several E rows may target one slab row; on the card their sum order is
-    not fixed."""
+    not fixed. With ``out`` (a flat array of L's layout) E is subtracted
+    from out's slab and L is only read; returns the array written."""
+    out = L if out is None else out
     E = update_rows_sym_t(L, kw, mrows, rstart, src_start, head_start,
                           tgt_cpos, mp, kp, csp)
-    extend_add.extend_add_rows(slab_view(L, slab_lo, srows, csp), tgt_rows,
+    extend_add.extend_add_rows(slab_view(out, slab_lo, srows, csp), tgt_rows,
                                E.reshape(-1, csp))
-    return L
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -278,17 +288,25 @@ def update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
 
 def apply_updates_lu_t(Lx, Ux, kw, mrows, rstart, src_start, head_start,
                        slab_lo: int, tgt_rows, tgt_cpos, mp: int, kp: int,
-                       csp: int, srows: int):
+                       csp: int, srows: int, out=None):
     """One LU UT update step, in place on Lx and Ux: update rows, then one
     ``extend_add.extend_add_rows2`` launch that subtracts EL's valid rows
     from Lx's slab and EU's from Ux's, both at the same offset and rows (on
-    the card their sum order is not fixed)."""
+    the card their sum order is not fixed). With ``out`` (a pair of flat
+    arrays) the rows are subtracted there instead."""
     EL, EU = update_rows_lu_t(Lx, Ux, kw, mrows, rstart, src_start,
                               head_start, tgt_cpos, mp, kp, csp)
+    return _extend2(out or (Lx, Ux), slab_lo, srows, csp, tgt_rows, EL, EU)
+
+
+def _extend2(out, slab_lo: int, srows: int, csp: int, tgt_rows, EL, EU):
+    """The twin extend-add of an LU update step into the pair ``out``;
+    returns it."""
+    tx, tu = out
     extend_add.extend_add_rows2(
-        slab_view(Lx, slab_lo, srows, csp), slab_view(Ux, slab_lo, srows, csp),
+        slab_view(tx, slab_lo, srows, csp), slab_view(tu, slab_lo, srows, csp),
         tgt_rows, EL.reshape(-1, csp), EU.reshape(-1, csp))
-    return Lx, Ux
+    return tx, tu
 
 
 def _task_gather(L, starts, rows: int, win: int):
@@ -330,14 +348,16 @@ def update_rows_sym_c(L, kw, mrows, src_start, tgt_cpos, mp: int, kp: int,
 
 
 def apply_updates_sym_c(L, kw, mrows, src_start, slab_lo: int, tgt_rows,
-                        tgt_cpos, mp: int, kp: int, csp: int, srows: int):
+                        tgt_cpos, mp: int, kp: int, csp: int, srows: int,
+                        out=None):
     """One UC update step, in place: update rows, then one
     ``extend_add.extend_add_rows`` launch into the slab at slab_lo, as
-    ``apply_updates_sym_t``."""
+    ``apply_updates_sym_t`` (``out`` too)."""
+    out = L if out is None else out
     E = update_rows_sym_c(L, kw, mrows, src_start, tgt_cpos, mp, kp, csp)
-    extend_add.extend_add_rows(slab_view(L, slab_lo, srows, csp), tgt_rows,
+    extend_add.extend_add_rows(slab_view(out, slab_lo, srows, csp), tgt_rows,
                                E.reshape(-1, csp))
-    return L
+    return out
 
 
 def update_rows_lu_c(Lx, Ux, kw, mrows, src_start, tgt_cpos, mp: int,
@@ -351,15 +371,14 @@ def update_rows_lu_c(Lx, Ux, kw, mrows, src_start, tgt_cpos, mp: int,
 
 
 def apply_updates_lu_c(Lx, Ux, kw, mrows, src_start, slab_lo: int, tgt_rows,
-                       tgt_cpos, mp: int, kp: int, csp: int, srows: int):
+                       tgt_cpos, mp: int, kp: int, csp: int, srows: int,
+                       out=None):
     """One LU UC update step, in place on Lx and Ux: update rows, then one
-    ``extend_add.extend_add_rows2`` launch, as ``apply_updates_lu_t``."""
+    ``extend_add.extend_add_rows2`` launch, as ``apply_updates_lu_t``
+    (``out`` too)."""
     EL, EU = update_rows_lu_c(Lx, Ux, kw, mrows, src_start, tgt_cpos, mp, kp,
                               csp)
-    extend_add.extend_add_rows2(
-        slab_view(Lx, slab_lo, srows, csp), slab_view(Ux, slab_lo, srows, csp),
-        tgt_rows, EL.reshape(-1, csp), EU.reshape(-1, csp))
-    return Lx, Ux
+    return _extend2(out or (Lx, Ux), slab_lo, srows, csp, tgt_rows, EL, EU)
 
 
 # --------------------------------------------------------------------------
@@ -400,10 +419,12 @@ def update_rows_sym(L, kw, src_row_start, tgt_cpos, kp: int, csp: int):
 
 
 def apply_updates_sym(L, kw, src_row_start, tgt_row_start, tgt_cpos,
-                      kp: int, csp: int):
-    """One rowwin U step, in place: L[tgt_row_start] -= E, row by row."""
+                      kp: int, csp: int, out=None):
+    """One rowwin U step, in place: L[tgt_row_start] -= E, row by row (into
+    ``out`` instead, given one)."""
     E = update_rows_sym(L, kw, src_row_start, tgt_cpos, kp, csp)
-    return _win_scatter_add(L, tgt_row_start, E, alpha=-1.0)
+    return _win_scatter_add(L if out is None else out, tgt_row_start, E,
+                            alpha=-1.0)
 
 
 def update_rows_lu(Lx, Ux, kw, src_row_start, tgt_cpos, kp: int, csp: int):
@@ -415,12 +436,14 @@ def update_rows_lu(Lx, Ux, kw, src_row_start, tgt_cpos, kp: int, csp: int):
 
 
 def apply_updates_lu(Lx, Ux, kw, src_row_start, tgt_row_start, tgt_cpos,
-                     kp: int, csp: int):
-    """One LU rowwin U step, in place on Lx and Ux."""
+                     kp: int, csp: int, out=None):
+    """One LU rowwin U step, in place on Lx and Ux (on the pair ``out``,
+    given one)."""
     EL, EU = update_rows_lu(Lx, Ux, kw, src_row_start, tgt_cpos, kp, csp)
-    _win_scatter_add(Lx, tgt_row_start, EL, alpha=-1.0)
-    _win_scatter_add(Ux, tgt_row_start, EU, alpha=-1.0)
-    return Lx, Ux
+    tx, tu = out or (Lx, Ux)
+    _win_scatter_add(tx, tgt_row_start, EL, alpha=-1.0)
+    _win_scatter_add(tu, tgt_row_start, EU, alpha=-1.0)
+    return tx, tu
 
 
 def panel_deltas_chol(L, widths, nbelow, diag_row_start, below_row_start,
@@ -434,14 +457,15 @@ def panel_deltas_chol(L, widths, nbelow, diag_row_start, below_row_start,
 
 
 def factor_panels_chol(L, widths, nbelow, diag_row_start, below_row_start,
-                       mode: str = "blocked"):
+                       mode: str = "blocked", out=None):
     """Factor one rowwin P bucket IN PLACE: the deltas added back row by
     row (dead columns carry exact zeros, so overlapping windows are
-    untouched)."""
+    untouched); into ``out`` instead, given one."""
     dD, dB = panel_deltas_chol(L, widths, nbelow, diag_row_start,
                                below_row_start, mode)
-    _win_scatter_add(L, diag_row_start, dD)
-    return _win_scatter_add(L, below_row_start, dB)
+    out = L if out is None else out
+    _win_scatter_add(out, diag_row_start, dD)
+    return _win_scatter_add(out, below_row_start, dB)
 
 
 def panel_deltas_lu(Lx, Ux, widths, nbelow, diag_row_start,
@@ -456,16 +480,18 @@ def panel_deltas_lu(Lx, Ux, widths, nbelow, diag_row_start,
 
 
 def factor_panels_lu(Lx, Ux, widths, nbelow, diag_row_start,
-                     below_row_start, mode: str = "blocked"):
-    """Factor one rowwin LU P bucket IN PLACE on Lx and Ux."""
+                     below_row_start, mode: str = "blocked", out=None):
+    """Factor one rowwin LU P bucket IN PLACE on Lx and Ux (on the pair
+    ``out``, given one)."""
     dDL, dBL, dDU, dBU = panel_deltas_lu(Lx, Ux, widths, nbelow,
                                          diag_row_start, below_row_start,
                                          mode)
-    _win_scatter_add(Lx, diag_row_start, dDL)
-    _win_scatter_add(Lx, below_row_start, dBL)
-    _win_scatter_add(Ux, diag_row_start, dDU)
-    _win_scatter_add(Ux, below_row_start, dBU)
-    return Lx, Ux
+    tx, tu = out or (Lx, Ux)
+    _win_scatter_add(tx, diag_row_start, dDL)
+    _win_scatter_add(tx, below_row_start, dBL)
+    _win_scatter_add(tu, diag_row_start, dDU)
+    _win_scatter_add(tu, below_row_start, dBU)
+    return tx, tu
 
 
 def lu_front(DLraw, DUraw, widths):
@@ -555,22 +581,22 @@ def _lu_deltas_blocks(DLraw, DUraw, BLraw, BUraw, widths, nbelow, cp: int,
 
 
 def factor_panels_lu_u(Lx, Ux, widths, nbelow, slab_lo: int, cp: int,
-                       rbp: int, mode: str = "blocked"):
+                       rbp: int, mode: str = "blocked", out=None):
     """Factor one uniform LU panel bucket IN PLACE on the same block of Lx
-    and Ux (see factor_panels_chol_u)."""
+    and Ux (see factor_panels_chol_u; ``out`` a pair of flat arrays)."""
     B = widths.shape[0]
-    S = (cp + rbp) * cp
-    bl = Lx[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
-    bu = Ux[slab_lo:slab_lo + B * S].view(B, cp + rbp, cp)
+    bl, bu = (_panel_block(F, slab_lo, B, cp, rbp) for F in (Lx, Ux))
     dDL, dBL, dDU, dBU = _lu_deltas_blocks(
         bl[:, :cp, :], bu[:, :cp, :], bl[:, cp:, :], bu[:, cp:, :],
         widths, nbelow, cp, rbp, mode)
+    tx, tu = out or (Lx, Ux)
+    bl, bu = (_panel_block(F, slab_lo, B, cp, rbp) for F in (tx, tu))
     bl[:, :cp, :] += dDL
     bu[:, :cp, :] += dDU
     if rbp:
         bl[:, cp:, :] += dBL
         bu[:, cp:, :] += dBU
-    return Lx, Ux
+    return tx, tu
 
 
 # --------------------------------------------------------------------------

@@ -51,30 +51,35 @@ from spfx_torch.kernels import _cuda, blocks, matmul, route
 from spfx_torch.plan.schedule import PanelBucketC, UpdateBucketC
 from spfx_torch.utils.config import Config, DEFAULT
 
-# JAX matmul precision -> torch float32 matmul precision. "default" and
-# "bfloat16" (one bf16 pass on the TPU) become TF32, which is finer. "high"
-# (bf16x3) keeps torch at full float32 for whatever product does not go
-# through matmul.bmm, and matmul.bmm runs the walks' float32 products as
-# the bf16x3 kernel (matmul.bmm_bf16x3).
+# JAX matmul precision -> the float32 product setting of the walks.
+# "default" and "bfloat16" (one bf16 pass on the TPU) become TF32 on the
+# card, which is finer, and full float32 on the CPU, as JAX's CPU backend
+# runs them. torch's process-wide float32 setting would not do: its
+# "medium" is TF32 for cuBLAS but bf16 for oneDNN on the CPU. So torch's
+# setting stays "highest" (full float32 on both backends) and only cuBLAS
+# gets TF32 (torch.backends.cuda.matmul.allow_tf32). "high" (bf16x3) keeps
+# torch at full float32 for whatever product does not go through
+# matmul.bmm, and matmul.bmm runs the walks' float32 products as the bf16x3
+# kernel (matmul.bmm_bf16x3).
 _PRECISION = {"highest": "highest", "float32": "highest",
-              "default": "medium", "bfloat16": "medium", "high": "highest"}
+              "default": "tf32", "bfloat16": "tf32", "high": "highest"}
 
 
 def _mode(name: str) -> str:
-    """The product mode a JAX precision name selects: "high", or torch's
-    setting for it."""
+    """The product mode a JAX precision name selects: "high", "tf32" (TF32
+    on the card, full float32 on the CPU) or "highest"."""
     return "high" if name == "high" else _PRECISION[name]
 
 
 @contextlib.contextmanager
 def matmul_precision(name: str):
     """float32 matrix products at the JAX precision ``name`` ("highest":
-    full float32, no TF32; "high": matmul.bmm's bf16x3 kernel), restored
-    afterwards."""
+    full float32, no TF32; "default": TF32 on the card, full float32 on the
+    CPU; "high": matmul.bmm's bf16x3 kernel), restored afterwards."""
     old = torch.get_float32_matmul_precision()
     old_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision(_PRECISION[name])
-    torch.backends.cuda.matmul.allow_tf32 = _PRECISION[name] != "highest"
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = _PRECISION[name] == "tf32"
     try:
         with matmul.precision(_mode(name)):
             yield
@@ -129,40 +134,57 @@ def _capture(device, fn, inputs, pool=None) -> tuple:
             {k: after[k] - before[k] for k in after})
 
 
-def update_step(arrays, ub, device, lu: bool) -> None:
-    """One update bucket, in place on ``arrays`` ((L,) or (Lx, Ux)), by its
-    kind: UT (``UpdateBucketC`` with head windows), UC (without) or rowwin
-    U (``UpdateBucket``)."""
+def update_step(arrays, ub, device, lu: bool, out=None,
+                tasks: tuple | None = None) -> None:
+    """One update bucket, by its kind: UT (``UpdateBucketC`` with head
+    windows), UC (without) or rowwin U (``UpdateBucket``). Reads
+    ``arrays`` ((L,) or (Lx, Ux)) and subtracts the update rows from
+    ``out`` (the same arrays, in place, when None). ``tasks`` (lo, hi)
+    runs only those tasks of the bucket (the sharded walk's slice; a UT
+    or UC bucket's tasks share one slab, so the slab stays)."""
+    out = tuple(arrays if out is None else out)
+    out = out if lu else out[0]
+    lo, hi = (0, len(ub.kw)) if tasks is None else tasks
     if not isinstance(ub, UpdateBucketC):
         fn = blocks.apply_updates_lu if lu else blocks.apply_updates_sym
-        fn(*arrays, *ub.to(device), kp=ub.kp, csp=ub.csp)
+        fn(*arrays, *(t[lo:hi] for t in ub.to(device)), kp=ub.kp,
+           csp=ub.csp, out=out)
         return
     slab_lo = int(ub.slab_lo[0])
+    *head, _, rows, tgt_cpos = ub.to(device)
+    head = [t[lo:hi] for t in head]
+    # the flat row table holds each task's rows in turn
+    rows = rows.view(len(ub.kw), -1)[lo:hi].reshape(-1)
+    tgt_cpos = tgt_cpos[lo:hi]
     if ub.head_start is not None:
-        kw, mrows, rstart, src_start, head_start, _, rows, tgt_cpos = \
-            ub.to(device)
         fn = blocks.apply_updates_lu_t if lu else blocks.apply_updates_sym_t
-        fn(*arrays, kw, mrows, rstart, src_start, head_start, slab_lo, rows,
-           tgt_cpos, mp=ub.mp, kp=ub.kp, csp=ub.csp, srows=ub.slab_rows)
+        fn(*arrays, *head, slab_lo, rows, tgt_cpos, mp=ub.mp, kp=ub.kp,
+           csp=ub.csp, srows=ub.slab_rows, out=out)
         return
-    kw, mrows, src_start, _, rows, tgt_cpos = ub.to(device)
     fn = blocks.apply_updates_lu_c if lu else blocks.apply_updates_sym_c
-    fn(*arrays, kw, mrows, src_start, slab_lo, rows, tgt_cpos, mp=ub.mp,
-       kp=ub.kp, csp=ub.csp, srows=ub.slab_rows)
+    fn(*arrays, *head, slab_lo, rows, tgt_cpos, mp=ub.mp, kp=ub.kp,
+       csp=ub.csp, srows=ub.slab_rows, out=out)
 
 
-def panel_step(arrays, pb, device, lu: bool, mode: str) -> None:
-    """One panel bucket, in place, by its kind: PC (``PanelBucketC``, one
-    uniform block) or rowwin P (``PanelBucket``), under panel mode
-    ``mode``."""
+def panel_step(arrays, pb, device, lu: bool, mode: str, out=None,
+               tasks: tuple | None = None) -> None:
+    """One panel bucket, by its kind: PC (``PanelBucketC``, one uniform
+    block) or rowwin P (``PanelBucket``), under panel mode ``mode``. Reads
+    ``arrays`` and adds the panels' deltas into ``out`` (``arrays``, in
+    place, when None); ``tasks`` (lo, hi) as in ``update_step``."""
+    out = tuple(arrays if out is None else out)
+    out = out if lu else out[0]
+    lo, hi = (0, len(pb.widths)) if tasks is None else tasks
     if isinstance(pb, PanelBucketC):
         widths, nbelow, _ = pb.to_u(device)
         fn = blocks.factor_panels_lu_u if lu else blocks.factor_panels_chol_u
-        fn(*arrays, widths, nbelow, int(pb.slab_lo[0]), cp=pb.cp,
-           rbp=pb.rbp, mode=mode)
+        fn(*arrays, widths[lo:hi], nbelow[lo:hi],
+           int(pb.slab_lo[0]) + lo * (pb.cp + pb.rbp) * pb.cp, cp=pb.cp,
+           rbp=pb.rbp, mode=mode, out=out)
         return
     fn = blocks.factor_panels_lu if lu else blocks.factor_panels_chol
-    fn(*arrays, *pb.to_f(device), mode=mode)
+    fn(*arrays, *(t[lo:hi] for t in pb.to_f(device)), mode=mode,
+       out=out)
 
 
 def walk_levels(arrays, levels, lu: bool, config: Config, device,

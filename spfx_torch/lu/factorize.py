@@ -35,7 +35,8 @@ import torch
 
 from spfx_torch.chol.factorize import (
     _DTYPES, check_config, check_windows, device_solve, engine_of,
-    make_engine, refined_solve, resolve_device, use_host_solve)
+    entry_values, lower_entries, make_engine, refined_solve, resolve_device,
+    use_host_solve)
 from spfx_torch.plan.schedule import FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils.config import Config, DEFAULT
@@ -102,39 +103,13 @@ class LUFactor:
         return refined_solve(solve1, self.A, self.config, b, refine)
 
     def LU_sparse(self) -> tuple[sp.csc_matrix, sp.csc_matrix]:
-        """Reconstruct (L, U) of P A P^T as scipy matrices — test path."""
-        sym = self.sym
+        """Reconstruct (L, U) of P A P^T as scipy matrices — test path. The
+        U^T panel holds U[c, r] where the L panel holds L[r, c]."""
+        rows, cols, pos = lower_entries(self.sym, self.plan)
         Lh, Uh = self.host_factors()
-        lr, lc, lv = [], [], []
-        ur, uc, uv = [], [], []
-        shift = self.plan.below_shift
-        for s in range(sym.nsuper):
-            c1, c2 = sym.sn_start[s], sym.sn_start[s + 1]
-            rr = sym.sn_row_list(s)
-            w = c2 - c1
-            wp = int(self.plan.strides[s])
-            off = self.plan.offsets[s]
-            sr = np.arange(len(rr))
-            if shift is not None:
-                sr = sr + np.where(sr >= w, shift[s], 0)
-            for c in range(w):
-                pos = off + sr * wp + c                # row-major panel
-                keep = rr >= c1 + c
-                lr.append(rr[keep])
-                lc.append(np.full(keep.sum(), c1 + c))
-                lv.append(Lh[pos][keep])
-                # U^T panel column c holds U[c1+c, rr] for rr >= c1+c
-                ur.append(np.full(keep.sum(), c1 + c))
-                uc.append(rr[keep])
-                uv.append(Uh[pos][keep])
-        n = sym.n
-        L = sp.csc_matrix((np.concatenate(lv),
-                           (np.concatenate(lr), np.concatenate(lc))),
-                          shape=(n, n))
-        U = sp.csc_matrix((np.concatenate(uv),
-                           (np.concatenate(ur), np.concatenate(uc))),
-                          shape=(n, n))
-        return L, U
+        n = self.sym.n
+        return (sp.csc_matrix((Lh[pos], (rows, cols)), shape=(n, n)),
+                sp.csc_matrix((Uh[pos], (cols, rows)), shape=(n, n)))
 
 
 class LU:
@@ -172,12 +147,8 @@ class LU:
         A = sp.csc_matrix(A)
         if permute_rows and self.row_perm is not None:
             A = sp.csc_matrix(A[self.row_perm])
-        Ap = A[self.sym.perm][:, self.sym.perm]
-        low = sp.tril(Ap).tocsc()
-        upt = sp.tril(Ap.T, -1).tocsc()
-        return tuple(torch.as_tensor(m.data.astype(self.config.dtype),
-                                     device=self.device)
-                     for m in (low, upt))
+        return entry_values(self.sym, A, self.config.dtype, self.device,
+                            lu=True)
 
     def factorize(self, A: sp.spmatrix) -> LUFactor:
         from spfx_torch.utils.instrument import finish_factorize, profile_scope

@@ -13,38 +13,45 @@ Explicit ALS: alternating ridge regression on observed entries.
 
 All shapes are static: interactions are degree-capped padded index arrays
 (``spfx_torch.recsys.data.padded_rows``) and the rows are solved in
-``config.chunk``-row pieces, as the JAX package's ``lax.map`` does. The
-JAX sweep is one ``shard_map`` program over a row-sharded mesh; the port's
-mesh is one device (``spfx_torch.dist.mesh``), so the sweep is a loop over
-its one shard. Tables are padded to ``round_up(n, chunk * ndev)`` rows
-like JAX's, and the padding rows stay zero.
+``config.chunk``-row pieces, as the JAX package's ``lax.map`` does.
+
+The tables are row-sharded over the mesh's ranks (``spfx_torch.dist.
+mesh``, one process per device; a mesh of one device without a process
+group is the whole table in one process): padded to
+``round_up(n, chunk * ndev)`` rows like JAX's, with the padding rows zero,
+each rank holds its block of U and V (``self.U``, ``self.V``) and of the
+interaction rows. A sweep all-gathers the other table whole (the JAX
+sweep's replicated ``Yother``), forms the Gramian on it on every rank, and
+solves this rank's rows. ``loss``, ``full_implicit_loss``, ``topk`` and
+``evaluate`` gather both tables and give every rank the same answer.
 
 Precision: every sweep runs inside ``mega.matmul_precision(
 config.matmul_precision)``: "highest" (the default) is full float32 with
 TF32 off, "high" sends the float32 Gram products to ``bmm_bf16x3``.
 ``topk``'s score product lies outside any precision context in the JAX
-package, so it runs at JAX's default precision, which the port maps to
-TF32 on the card (``mega._PRECISION``); on the CPU it stays full float32,
-as JAX's CPU default does.
+package, so it runs at JAX's default precision, ``mega.matmul_precision(
+"default")``: TF32 on the card, full float32 on the CPU, as JAX's CPU
+default does.
 
 ``fit_steps(iters)`` waits for nothing on the host: on the card one
 iteration (both sweeps) is captured into a CUDA graph at the first call
 and replayed ``iters`` times, as ``MegaRunner`` replays a factorization
 (the JAX package makes it one program with a traced iteration count).
 Every call of the sweep can be captured: the gathers, the products,
-``cholesky_ex(check_errors=False)`` and the triangular solves.
+``cholesky_ex(check_errors=False)``, the triangular solves, and the
+all-gathers where the group's backend is NCCL. Under gloo (CPU ranks, or
+several ranks on one card) and on the CPU the iterations run eagerly.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from spfx_torch.dist.mesh import Mesh, make_mesh, round_up
+from spfx_torch.dist.mesh import Mesh, make_mesh, round_up, shard_rows
 from spfx_torch.kernels import matmul
 from spfx_torch.kernels.dense import batched_chol_solve
 from .data import Interactions, padded_rows
@@ -90,12 +97,16 @@ def _solve_rows(Yz, G, idx, rat, lam, alpha, implicit: bool):
 
 
 def make_sweep(mesh: Mesh, implicit: bool, chunk: int):
-    """The sweep (Yother, idx, rat, lam, alpha) -> Xnew over the mesh's one
-    device: the rows in ``chunk``-row pieces (JAX: ``lax.map`` over each
-    shard), against the read-side table with its zero sentinel row and the
-    Gramian over the full table, formed once per sweep."""
+    """The sweep (Yother, idx, rat, lam, alpha) -> Xnew on this rank: the
+    other table's blocks all-gathered whole (JAX: the replicated read
+    side), the Gramian over the full table, formed once per sweep, and
+    this rank's rows (``idx``, ``rat``: its block) in ``chunk``-row pieces
+    (JAX: ``lax.map`` over each shard) against the table with its zero
+    sentinel row."""
+    gather = shard_rows(mesh).gather
 
     def sweep(Yother, idx, rat, lam, alpha):
+        Yother = gather(Yother)
         n, k = idx.shape[0], Yother.shape[1]
         # padded and sentinel rows are zero, so they add nothing to G
         if implicit:
@@ -115,15 +126,19 @@ def make_sweep(mesh: Mesh, implicit: bool, chunk: int):
 
 class _FitSteps:
     """``iters`` full iterations (users, then items) with no host wait, in
-    place on copies of U and V. On the CPU the loop runs eagerly; on the
-    card one iteration, over static tables, is captured into a CUDA graph
-    at the first call (after an eager warm-up, ``mega._capture``) and
-    replayed ``iters`` times. The graph holds the interaction tables it
-    was captured with."""
+    place on copies of U and V. On the card, alone or in an NCCL group, one
+    iteration over static tables is captured into a CUDA graph at the
+    first call (after an eager warm-up, ``mega._capture``) and replayed
+    ``iters`` times; the graph holds the interaction tables it was
+    captured with. On the CPU and under gloo, whose collectives a graph
+    cannot hold, the loop runs eagerly."""
 
-    def __init__(self, sweep, device: torch.device):
+    def __init__(self, sweep, mesh: Mesh):
         self._sweep = sweep
-        self.device = device
+        self.device = mesh.device
+        import torch.distributed as dist
+        self.graphs = mesh.device.type == "cuda" and (
+            mesh.group is None or dist.get_backend(mesh.group) == "nccl")
         self._graph = None          # (graph, static U, static V, tables)
         self.capture = None         # warm-up / capture seconds, first call
 
@@ -132,7 +147,7 @@ class _FitSteps:
         V.copy_(self._sweep(U, i_idx, i_rat, lam, alpha))
 
     def __call__(self, iters: int, U, V, *tables):
-        if self.device.type != "cuda":
+        if not self.graphs:
             U, V = U.clone(), V.clone()
             for _ in range(iters):
                 self._iteration(U, V, *tables)
@@ -158,30 +173,17 @@ class _FitSteps:
 
 def make_fit_steps(mesh: Mesh, implicit: bool, chunk: int) -> _FitSteps:
     """Multi-iteration training with no host wait: (iters, U, V, u_idx,
-    u_rat, i_idx, i_rat, lam, alpha) -> (U, V); on the card one captured
-    iteration replayed ``iters`` times."""
-    return _FitSteps(make_sweep(mesh, implicit, chunk), mesh.devices[0])
-
-
-@contextlib.contextmanager
-def _score_precision():
-    """JAX's default precision for ``topk``'s float32 score product: TF32
-    on the card (the port's mapping of "default", ``mega._PRECISION``),
-    full float32 on the CPU (torch's "medium" would take bf16 there, where
-    JAX's CPU default is full float32)."""
-    old = torch.get_float32_matmul_precision()
-    old_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(old)
-        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    u_rat, i_idx, i_rat, lam, alpha) -> (U, V), this rank's blocks; on the
+    card (alone or over NCCL) one captured iteration replayed ``iters``
+    times."""
+    return _FitSteps(make_sweep(mesh, implicit, chunk), mesh)
 
 
 class ALSModel:
-    """ALS/iALS model over a one-device mesh (the CUDA device unless
-    ``device`` or ``mesh`` says otherwise)."""
+    """ALS/iALS model row-sharded over a mesh (by default the process
+    group's, else the CUDA device alone, unless ``device`` or ``mesh`` says
+    otherwise). ``U`` and ``V`` are this rank's blocks of the padded
+    tables."""
 
     def __init__(self, data: Interactions, config: ALSConfig = ALSConfig(),
                  mesh: Mesh | None = None, device=None):
@@ -194,7 +196,8 @@ class ALSModel:
         if mesh is None:
             mesh = make_mesh(devices=None if device is None else [device])
         self.mesh = mesh
-        self.device = dev = mesh.devices[0]
+        self.device = dev = mesh.device
+        self._shard = shard = shard_rows(mesh)
         ndev = mesh.size
         c = config
         dtype = np.dtype(c.dtype)
@@ -213,14 +216,16 @@ class ALSModel:
         V0 = (rng.standard_normal((self.ni, c.rank)) * scale).astype(dtype)
         U0[data.num_users:] = 0      # alignment-padding rows must stay zero
         V0[data.num_items:] = 0      # (they feed the shared Gramian)
-        self.U = torch.as_tensor(U0, device=dev)
-        self.V = torch.as_tensor(V0, device=dev)
+        # this rank's blocks: the tables and their interaction rows
+        local = lambda a: shard.local(torch.as_tensor(a)).to(dev)
+        self.U = local(U0)
+        self.V = local(V0)
         self._sweep = make_sweep(mesh, c.implicit, c.chunk)
         self._fit_steps = None
-        self._u_idx_d = torch.as_tensor(self.u_idx, device=dev)
-        self._u_rat_d = torch.as_tensor(self.u_rat.astype(dtype), device=dev)
-        self._i_idx_d = torch.as_tensor(self.i_idx, device=dev)
-        self._i_rat_d = torch.as_tensor(self.i_rat.astype(dtype), device=dev)
+        self._u_idx_d = local(self.u_idx)
+        self._u_rat_d = local(self.u_rat.astype(dtype))
+        self._i_idx_d = local(self.i_idx)
+        self._i_rat_d = local(self.i_rat.astype(dtype))
         self._lam = float(c.lam)
         self._alpha = float(c.alpha)
 
@@ -269,10 +274,16 @@ class ALSModel:
 
     # -- evaluation -------------------------------------------------------
 
+    def full_tables(self):
+        """(U, V) whole, padding rows included, on this rank's device (one
+        all-gather each in a group)."""
+        return self._shard.gather(self.U), self._shard.gather(self.V)
+
     def _tables(self):
         """(U, V) on the host as numpy, without their padding rows."""
-        return (self.U[:self.data.num_users].detach().cpu().numpy(),
-                self.V[:self.data.num_items].detach().cpu().numpy())
+        U, V = self.full_tables()
+        return (U[:self.data.num_users].detach().cpu().numpy(),
+                V[:self.data.num_items].detach().cpu().numpy())
 
     def loss(self) -> float:
         """ALS objective on observed entries (monitoring only).
@@ -316,12 +327,14 @@ class ALSModel:
         another order than ``lax.top_k``'s."""
         nu = self.data.num_users
         ni = self.data.num_items
+        from spfx_torch.kernels.mega import matmul_precision
         out = np.zeros((nu, k), dtype=np.int32)
-        V = self.V[:ni]
-        with _score_precision():
+        U, V = self.full_tables()
+        V = V[:ni]
+        with matmul_precision("default"):
             for c0 in range(0, nu, chunk):
                 hi = min(c0 + chunk, nu)
-                s = (self.U[c0:hi] @ V.t()).to(torch.float32)
+                s = (U[c0:hi] @ V.t()).to(torch.float32)
                 if exclude_train:
                     idx = torch.as_tensor(self.u_idx[c0:hi],
                                           device=self.device).long()

@@ -478,10 +478,10 @@ def test_fit_steps_matches_fit():
 # the mesh and the bench
 # ---------------------------------------------------------------------------
 
-def test_mesh_of_two_devices_refused():
+def test_mesh_larger_than_group_refused():
     mesh = make_mesh(devices=["cpu"])
     assert mesh.axis_names == ("data",) and mesh.size == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="init_distributed"):
         make_mesh(devices=["cpu", "cpu"])
     inter = rdata.synthetic(40, 20, avg_degree=5, seed=1)
     m = ALSModel(inter, ALSConfig(rank=4, chunk=8), mesh=mesh)

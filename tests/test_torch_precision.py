@@ -302,3 +302,51 @@ def test_blocked_panel_high_is_close():
         got = blocks._chol_deltas_blocked(D, Bl, w, nb, cp, rbp)
     for g, r in zip(got, ref):
         assert float((g - r).abs().max()) <= HIGH_TOL * float(r.abs().max())
+
+
+# the seeded float32 product of the "default" precision's repair: (512, 64)
+# @ (64, 3000), whose error against float64 is 0.107 in one bf16 pass and
+# 1.45e-5 in full float32
+PRODUCT = (512, 64, 3000)
+
+
+@pytest.mark.parametrize("name", ["highest", "float32", "default",
+                                  "bfloat16", "high"])
+def test_cpu_products_keep_float32(name):
+    """On the CPU every JAX precision but "high" runs float32 products in
+    full float32 (JAX's CPU backend does), within 1e-4 of float64: torch's
+    process-wide "medium" would send them through oneDNN's bf16. "high"
+    stays within the bf16x3 error model. torch's own matmul inside the
+    context is full float32 too."""
+    m, k, n = PRODUCT
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    exact = a.double() @ b.double()
+    with mega.matmul_precision(name):
+        got = matmul.bmm(a[None], b[None])[0].double()
+        plain = (a @ b).double()
+    err = (got - exact).abs()
+    if name == "high":
+        scale = a.abs().double() @ b.abs().double()
+        assert bool((err <= (3 * 2.0 ** -16 + k * 2.0 ** -22) * scale).all())
+    else:
+        assert float(err.max()) <= 1e-4
+    assert float((plain - exact).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("lu", [False, True], ids=["chol", "lu"])
+def test_default_precision_matches_jax(lu):
+    """Config(matmul_precision="default") float32 factors at laplacian_3d(6)
+    against the JAX package's, within 1e-5 of each array's largest entry
+    (the other float32 parity tests' tolerance)."""
+    A = generate.laplacian_3d(6)
+    jk = spfx.lu if lu else spfx.cholesky
+    tk = spfx_torch.lu if lu else spfx_torch.cholesky
+    kw = dict(dtype="float32", matmul_precision="default")
+    fj = jk(A, spfx.Config(**kw))
+    ft = tk(A, Config(**kw), device="cpu")
+    for nm in _names(lu):
+        want = np.asarray(getattr(fj, nm))
+        got = getattr(ft, nm).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
