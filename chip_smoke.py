@@ -92,6 +92,16 @@ non-zero):
    a graph per mode, the capture's launches against the route-aware
    prediction (every PC step one launch of the route's kernel), the graph
    against the eager walk;
+4j. the recorder's step stamps (spfx_torch.utils.instrument), both kinds
+   at 48^3 f32 with the default Config: the stamps captured in phase 4's
+   graph, summed over a replay (assembly, every level's update and panel
+   buckets), within 3% of CUDA events around that replay (median of 3);
+   the factor against a factor from a graph captured with the recorder
+   off (which has no stamps), within 1e-5 of its largest entry, beside
+   the distance between two replays of one graph (the walk's atomics
+   order its sums anew each replay); the stamped and unstamped replays
+   between CUDA events (medians of 5, in turns) and the solve graph's
+   capture times kept by MegaSolver;
 4d. the non-default bucket kinds and engines, Cholesky and LU in f32:
    Config(update_tile=0) (UC buckets) and Config(layout="rowwin") with the
    mega engine at 48^3 on the 48^3 analysis, and
@@ -1953,6 +1963,92 @@ def replay_event_ms(runner, mode: str) -> float:
     return statistics.median(ev)
 
 
+def stamps_phase(ctx, A, label: str) -> dict:
+    """Phase 4j for one context whose default graph was captured with the
+    recorder on: the step stamps of a replay against CUDA events around
+    it (each of 3 replays; the sum within 3% of the median), the factor
+    against the factor of a runner whose graph was captured with the
+    recorder off (within the graph-against-eager limit, beside two
+    replays' distance), both graphs' replays between CUDA events (median
+    of 5 each, in turns), and the solve graph's capture times kept by the
+    context's MegaSolver (phase 4's device solve report captured one)."""
+    import torch
+    from spfx_torch.kernels import route
+    from spfx_torch.kernels.mega import MegaRunner
+    from spfx_torch.utils import instrument
+    runner, mode = ctx._runner, route.panel_mode()
+    g = runner._graphs[mode]
+    if g.stamps is None:
+        fail(f"{label}: the default graph has no step stamps")
+    vals = ctx.entry_values(A)
+    vals = vals if is_lu(ctx) else (vals,)
+
+    def arrays(out):
+        return out if is_lu(ctx) else (out,)
+    stamped = [arrays(runner.run(*vals)) for _ in range(2)]
+    instrument.enable(False)
+    try:
+        plain = MegaRunner(ctx.plan, lu=is_lu(ctx), config=ctx.config,
+                           device=ctx.device)
+        got = arrays(plain.run(*vals))
+    finally:
+        instrument.enable(True)
+    if plain._graphs[mode].stamps is not None:
+        fail(f"{label}: a graph captured with the recorder off has stamps")
+    # the walk's atomics (scatter_add_, the extend-add) order its sums
+    # differently from one replay to the next, so the two graphs' factors
+    # are held to the graph-against-eager limit, beside the distance
+    # between two replays of one graph
+    tol = 1e-5 if ctx.config.dtype in ("float32", "complex64") else 1e-12
+    floor, dist = {}, {}
+    for name, a, a2, b in zip(("Lx", "Ux") if is_lu(ctx) else ("L",),
+                              *stamped, got):
+        scale = float(b.abs().max())
+        floor[name] = max_diff(a, a2) / scale
+        dist[name] = max_diff(a, b) / scale
+        if not dist[name] <= tol:
+            fail(f"{label}: the stamped graph's {name} is {dist[name]:.3e} "
+                 f"of its largest entry from the unstamped graph's (limit "
+                 f"{tol:g})")
+    sums, ev = [], {"stamped": [], "plain": []}
+    for i in range(5):
+        for key, gr in (("stamped", g), ("plain", plain._graphs[mode])):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            gr.graph.replay()
+            b.record()
+            b.synchronize()
+            ev[key].append(a.elapsed_time(b))
+            if key == "stamped" and i < 3:
+                st = g.stamps.resolve()
+                sums.append((st["assembly_ms"] + st["ut_ms"] + st["pc_ms"],
+                             ev[key][-1], st))
+    ratio = statistics.median(s / e for s, e, _ in sums)
+    st = sums[-1][2]
+    # phase 4's device solve report captured a solve graph for one
+    # right-hand side on the context's solver
+    solve_cap = ctx._solver.captures.get(1)
+    if not solve_cap or not (solve_cap["warmup_s"] > 0
+                             and solve_cap["capture_s"] > 0):
+        fail(f"{label}: MegaSolver kept no capture times: {solve_cap}")
+    rep = dict(stamps_over_events=ratio, solve_capture=solve_cap,
+               stamped_vs_unstamped=dist, replay_vs_replay=floor,
+               stamps_ms=[s for s, _, _ in sums],
+               events_ms=[e for _, e, _ in sums],
+               assembly_ms=st["assembly_ms"], ut_ms=st["ut_ms"],
+               pc_ms=st["pc_ms"], levels=len(st["levels"]),
+               stamped_replay_ms=statistics.median(ev["stamped"]),
+               plain_replay_ms=statistics.median(ev["plain"]))
+    log(f"[{label} stamps] " + json.dumps(rep))
+    if not 0.97 <= ratio <= 1.03:
+        fail(f"{label}: the step stamps sum to {ratio:.4f} of the CUDA "
+             "events around the replay (limit 3%)")
+    del plain, got, stamped
+    torch.cuda.empty_cache()
+    return rep
+
+
 def profiled_ms(fn):
     """(device ms, kernel names) of one call of ``fn`` under
     torch.profiler (CUDA activity only): the sum of its kernels' self
@@ -3171,6 +3267,11 @@ def main(argv) -> int:
                         c, A, "chip_smoke_profile" + ("_lu" if lu else "")
                         + ("" if mode is None else f"_{mode}"))
     mark("4, 4b and 4c")
+
+    # 4j. the recorder's step stamps in phase 4's graphs, both kinds
+    for lu, c in ((False, ctx), (True, lctx)):
+        stamps_phase(c, A, f"{'LU' if lu else 'main'} {GRID}^3 float32")
+    mark("4j")
 
     # 4d. UC buckets and the rowwin layout, both kinds, on the 48^3
     # analysis; the fused engine at 32^3 (its own analysis), cut from 48^3

@@ -1,0 +1,15 @@
+"""pc_step_ms: device ms of the latest graph replay inside its levels'
+panel buckets (PC: the diagonal blocks and the panels below them), summed
+over the levels, from the step stamps the program captures in its
+factorization graph."""
+
+from portbench import recorder
+
+SOURCE = "program_span"
+LAYER = "steps"
+MOVES = "factorize_ms"
+
+
+def read(obs):
+    st = recorder.steps()
+    return None if st is None else st["pc_ms"]

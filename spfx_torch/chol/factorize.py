@@ -31,8 +31,6 @@ points raise.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import scipy.sparse as sp
 import torch
@@ -41,6 +39,7 @@ from spfx_torch.kernels.mega import _PRECISION, MegaRunner, MegaSolver
 from spfx_torch.plan.schedule import (ALIGN, FactorPlan, PanelBucketC,
                                      UpdateBucketC, build_plan)
 from spfx_torch.symbolic.analyze import Symbolic, analyze
+from spfx_torch.utils import instrument
 from spfx_torch.utils.config import Config, DEFAULT
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -176,17 +175,19 @@ def device_solve(f, F, G, b: np.ndarray) -> np.ndarray:
     its solve graphs stay on the factor."""
     n = f.sym.n
     squeeze = b.ndim == 1
-    b2 = np.asarray(b).reshape(n, -1)
-    xp = np.zeros((n + 1, b2.shape[1]), dtype=f.config.dtype)
-    xp[:n] = b2[f._inperm]
+    with instrument.span("spfx.solve.stage_in"):
+        b2 = np.asarray(b).reshape(n, -1)
+        xp = np.zeros((n + 1, b2.shape[1]), dtype=f.config.dtype)
+        xp[:n] = b2[f._inperm]
+        xd = torch.from_numpy(xp).to(F.device)
     if f._solver is None:
         f._solver = MegaSolver(f.plan, lu=hasattr(f, "Ux"), config=f.config,
                                device=F.device)
-    x = f._solver.solve(F, G, torch.from_numpy(xp).to(F.device),
-                        f._solve_graphs)
-    xh = x[:n].cpu().numpy()
-    out = np.empty_like(xh)
-    out[f.sym.perm] = xh
+    x = f._solver.solve(F, G, xd, f._solve_graphs)
+    with instrument.span("spfx.solve.stage_out"):
+        xh = x[:n].cpu().numpy()
+        out = np.empty_like(xh)
+        out[f.sym.perm] = xh
     return out[:, 0] if squeeze else out
 
 
@@ -195,33 +196,61 @@ def refined_solve(solve1, A, config: Config, b, refine: int | None):
     ``refine`` sweeps of iterative refinement against A (the config's
     ``refine_iters`` when None), stopping early once the residual is under
     ``config.refine_tol``. Refinement runs in f64, or in complex128 for a
-    complex right-hand side or factor."""
-    refine = config.refine_iters if refine is None else refine
-    b = np.asarray(b)
-    wide = np.complex128 if (np.iscomplexobj(b) or "complex" in config.dtype) \
-        else np.float64
-    b = b.astype(wide)
-    x = solve1(b).astype(wide)
-    if refine <= 0:
+    complex right-hand side or factor.
+
+    Recorded: the span ``spfx.solve`` (a request, unless inside one), a
+    ``spfx.solve.pass`` around each ``solve1`` call and a
+    ``spfx.refine.residual`` around each residual and its norm; the
+    counters ``solve_requests``, ``solve_passes``, ``refine_sweeps`` and
+    ``refine_capped`` (every sweep made and no residual under the
+    tolerance)."""
+    with instrument.span("spfx.solve"):
+        instrument.count("solve_requests")
+        refine = config.refine_iters if refine is None else refine
+        b = np.asarray(b)
+        wide = np.complex128 if (np.iscomplexobj(b)
+                                 or "complex" in config.dtype) \
+            else np.float64
+        b = b.astype(wide)
+        x = _solve_pass(solve1, b).astype(wide)
+        if refine <= 0:
+            return x
+        bn = np.abs(b).max() + 1e-300
+        for _ in range(refine):
+            with instrument.span("spfx.refine.residual"):
+                r = b - A @ x
+                met = np.abs(r).max() / bn < config.refine_tol
+            if met:
+                break
+            instrument.count("refine_sweeps")
+            x = x + _solve_pass(solve1, r).astype(wide)
+        else:
+            instrument.count("refine_capped")
         return x
-    bn = np.abs(b).max() + 1e-300
-    for _ in range(refine):
-        r = b - A @ x
-        if np.abs(r).max() / bn < config.refine_tol:
-            break
-        x = x + solve1(r).astype(wide)
-    return x
+
+
+def _solve_pass(solve1, b):
+    """One ``solve1`` call, as the span ``spfx.solve.pass``."""
+    with instrument.span("spfx.solve.pass"):
+        instrument.count("solve_passes")
+        return solve1(b)
 
 
 def entry_values(sym: Symbolic, A: sp.spmatrix, dtype: str, device,
                  lu: bool = False) -> tuple:
     """The permuted lower-triangle entry values of A on ``device`` (LU: and
-    the strict upper triangle's, transposed), in ``dtype``."""
-    Ap = sp.csc_matrix(A)[sym.perm][:, sym.perm]
-    parts = [sp.tril(Ap).tocsc()] + ([sp.tril(Ap.T, -1).tocsc()] if lu
-                                      else [])
-    return tuple(torch.as_tensor(m.data.astype(dtype), device=device)
-                 for m in parts)
+    the strict upper triangle's, transposed), in ``dtype``: the host work
+    as the span ``spfx.entry.permute``, the copy as ``spfx.entry.copy``,
+    its bytes counted as ``entry_bytes``."""
+    with instrument.span("spfx.entry.permute"):
+        Ap = sp.csc_matrix(A)[sym.perm][:, sym.perm]
+        parts = [sp.tril(Ap).tocsc()] + ([sp.tril(Ap.T, -1).tocsc()] if lu
+                                          else [])
+        host = [m.data.astype(dtype) for m in parts]
+    with instrument.span("spfx.entry.copy"):
+        out = tuple(torch.as_tensor(h, device=device) for h in host)
+    instrument.count("entry_bytes", sum(h.nbytes for h in host))
+    return out
 
 
 def lower_entries(sym: Symbolic, plan: FactorPlan) -> tuple:
@@ -335,12 +364,12 @@ class Cholesky:
         A = sp.csc_matrix(A)
         self.A = A
         self.config = config
-        t0 = time.perf_counter()
-        self.sym = sym if sym is not None else analyze(A, config)
-        self.analyze_time = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.plan = build_plan(self.sym, A, config)
-        self.plan_time = time.perf_counter() - t0
+        with instrument.timed("spfx.analyze") as span:
+            self.sym = sym if sym is not None else analyze(A, config)
+        self.analyze_time = span.seconds
+        with instrument.timed("spfx.plan") as span:
+            self.plan = build_plan(self.sym, A, config)
+        self.plan_time = span.seconds
         check_windows(self.plan)
         self._runner = None
         self._solver = None
@@ -351,20 +380,19 @@ class Cholesky:
         return entry_values(self.sym, A, self.config.dtype, self.device)[0]
 
     def factorize(self, A: sp.spmatrix) -> CholeskyFactor:
-        from spfx_torch.utils.instrument import finish_factorize, profile_scope
-        A = sp.csc_matrix(A)
-        t0 = time.perf_counter()
-        vals = self.entry_values(A)
-        if self._runner is None:
-            self._runner, self._solver = make_engine(self, lu=False)
-        with profile_scope(self.config, "factorize"):
-            if engine_of(self.config) == "calls":
-                L = self._runner.trace_fn()(vals)
-            else:
-                L = self._runner.run(vals)      # graph replays on the card
-        f = CholeskyFactor(A, self.sym, self.plan, L, self.config,
-                           solver=self._solver)
-        return finish_factorize(self, f, t0)
+        with instrument.timed("spfx.factorize") as req:
+            A = sp.csc_matrix(A)
+            vals = self.entry_values(A)
+            if self._runner is None:
+                self._runner, self._solver = make_engine(self, lu=False)
+            with instrument.profile_scope(self.config, "factorize"):
+                if engine_of(self.config) == "calls":
+                    L = self._runner.trace_fn()(vals)
+                else:
+                    L = self._runner.run(vals)  # graph replays on the card
+            f = CholeskyFactor(A, self.sym, self.plan, L, self.config,
+                               solver=self._solver)
+            return instrument.finish_factorize(self, f, req.start_s)
 
 
 def cholesky(A: sp.spmatrix, config: Config = DEFAULT,

@@ -49,6 +49,7 @@ import torch
 
 from spfx_torch.kernels import _cuda, blocks, matmul, route
 from spfx_torch.plan.schedule import PanelBucketC, UpdateBucketC
+from spfx_torch.utils import instrument
 from spfx_torch.utils.config import Config, DEFAULT
 
 # JAX matmul precision -> the float32 product setting of the walks.
@@ -100,10 +101,12 @@ def update_precision(config: Config):
 
 @dataclasses.dataclass
 class _Graph:
-    """A captured walk: the graph, its static inputs and its outputs."""
+    """A captured walk: the graph, its static inputs and its outputs (and
+    the step stamps captured in it, if any)."""
     graph: "torch.cuda.CUDAGraph"
     inputs: tuple
     outputs: tuple
+    stamps: "instrument.Stamps | None" = None
 
 
 def _capture(device, fn, inputs, pool=None) -> tuple:
@@ -188,18 +191,23 @@ def panel_step(arrays, pb, device, lu: bool, mode: str, out=None,
 
 
 def walk_levels(arrays, levels, lu: bool, config: Config, device,
-                mode: str) -> None:
+                mode: str, stamp=None) -> None:
     """The left-looking level walk over ``levels``, in place: per level
     its pending updates (at the config's update precision), then its
-    panels."""
+    panels. ``stamp`` (an ``instrument.Stamps``), when given, is called
+    after each level's updates and after its panels."""
     upd_ctx = update_precision(config)
     with matmul_precision(config.matmul_precision):
         for lp in levels:
             with upd_ctx():
                 for ub in lp.updates:
                     update_step(arrays, ub, device, lu)
+            if stamp is not None:
+                stamp()
             for pb in lp.panels:
                 panel_step(arrays, pb, device, lu, mode)
+            if stamp is not None:
+                stamp()
 
 
 def solve_step(F, x, pb, device, lu: bool, forward: bool) -> None:
@@ -240,16 +248,22 @@ class MegaRunner:
         self.captures: dict = {}
         self.replays = 0
 
-    def _once(self, vals, vals_u=None, mode: str | None = None):
+    def _once(self, vals, vals_u=None, mode: str | None = None,
+              stamps=None):
         """One eager factorization from permuted lower(-and-upper^T) entry
         values: the assembly into fresh storage, then the level walk, in
         place. ``mode`` is the panel-kernel mode (``route.panel_mode()``
-        when None)."""
+        when None); ``stamps`` (an ``instrument.Stamps``) marks the start,
+        the end of the assembly and each level's steps."""
         mode = route.panel_mode() if mode is None else mode
+        if stamps is not None:
+            stamps()
         arrays = [blocks.assemble(a, v, self.plan.storage)
                   for a, v in zip(self._asm, (vals, vals_u))]
+        if stamps is not None:
+            stamps()
         walk_levels(arrays, self.plan.levels, self.lu, self.config,
-                    self.device, mode)
+                    self.device, mode, stamp=stamps)
         return tuple(arrays) if self.lu else arrays[0]
 
     def trace_fn(self):
@@ -273,39 +287,52 @@ class MegaRunner:
             raise ValueError(f"run_repeat: reps must be >= 1, got {reps}")
         mode = route.panel_mode()      # SPFX_PANEL_KERNEL, once a call
         if self.device.type != "cuda":
-            for _ in range(reps):
-                out = self._once(vals, vals_u, mode)
+            with instrument.span("spfx.replay", reps=reps):
+                for _ in range(reps):
+                    stamps = instrument.stamps(
+                        len(self.plan.levels), self.device)
+                    out = self._once(vals, vals_u, mode, stamps)
+                    instrument.note_steps(mode, stamps)
             return out
         inputs = (vals, vals_u) if self.lu else (vals,)
         g = self._graphs.get(mode)
         fresh = g is None
         if fresh:
             g = self._graphs[mode] = self._capture(mode, inputs)
-        t0 = time.perf_counter()
-        for dst, src in zip(g.inputs, inputs):
-            if src.shape != dst.shape or src.dtype != dst.dtype \
-                    or src.device != dst.device:
-                raise ValueError(
-                    f"MegaRunner: entry values {tuple(src.shape)} "
-                    f"{src.dtype} on {src.device}, the graph takes "
-                    f"{tuple(dst.shape)} {dst.dtype} on {dst.device}")
-            dst.copy_(src)
-        for _ in range(reps):
-            g.graph.replay()
-            self.replays += 1
-        out = tuple(t.clone() for t in g.outputs)
+        with instrument.timed("spfx.replay", reps=reps) as sp:
+            for dst, src in zip(g.inputs, inputs):
+                if src.shape != dst.shape or src.dtype != dst.dtype \
+                        or src.device != dst.device:
+                    raise ValueError(
+                        f"MegaRunner: entry values {tuple(src.shape)} "
+                        f"{src.dtype} on {src.device}, the graph takes "
+                        f"{tuple(dst.shape)} {dst.dtype} on {dst.device}")
+                dst.copy_(src)
+            for _ in range(reps):
+                g.graph.replay()
+                self.replays += 1
+                instrument.count("replays")
+            out = tuple(t.clone() for t in g.outputs)
+        instrument.note_steps(mode, g.stamps)
         if fresh:
             torch.cuda.synchronize(self.device)
-            self.captures[mode]["first_replay_s"] = time.perf_counter() - t0
+            self.captures[mode]["first_replay_s"] = (time.perf_counter()
+                                                     - sp.start_s)
         return out if self.lu else out[0]
 
     def _capture(self, mode: str, inputs) -> _Graph:
-        static = tuple(v.clone() for v in inputs)
-        graph, out, warm, cap, launches = _capture(
-            self.device, functools.partial(self._once, mode=mode), static)
+        """Capture the walk of ``mode`` over static copies of ``inputs``,
+        with step stamps when the recorder is on."""
+        with instrument.span("spfx.capture", mode=mode) as sp:
+            static = tuple(v.clone() for v in inputs)
+            stamps = instrument.stamps(len(self.plan.levels), self.device)
+            graph, out, warm, cap, launches = _capture(
+                self.device, functools.partial(self._once, mode=mode,
+                                               stamps=stamps), static)
+            sp.set(warmup_s=warm, capture_s=cap, launches=launches)
         self.captures[mode] = dict(warmup_s=warm, capture_s=cap,
                                    launches=launches)
-        return _Graph(graph, static, out if self.lu else (out,))
+        return _Graph(graph, static, out if self.lu else (out,), stamps)
 
 
 class MegaSolver:
@@ -319,6 +346,9 @@ class MegaSolver:
         self.lu = lu
         self.config = config
         self.device = _device(device)
+        # nrhs -> {"warmup_s", "capture_s", "launches"}: the latest capture
+        # of a solve graph for that many right-hand sides
+        self.captures: dict = {}
 
     def _panels(self):
         return [pb for lp in self.plan.levels for pb in lp.panels]
@@ -351,10 +381,23 @@ class MegaSolver:
         nrhs = x.shape[1]
         g = graphs.get(nrhs)
         if g is None:
-            static = torch.zeros_like(x)
-            graph, out, *_ = _capture(
-                self.device, functools.partial(self._eager, F, G), (static,))
+            with instrument.span("spfx.solve.capture", nrhs=nrhs) as sp:
+                static = torch.zeros_like(x)
+                graph, out, warm, cap, launches = _capture(
+                    self.device, functools.partial(self._eager, F, G),
+                    (static,))
+                sp.set(warmup_s=warm, capture_s=cap)
+            self.captures[nrhs] = dict(warmup_s=warm, capture_s=cap,
+                                       launches=launches)
             g = graphs[nrhs] = _Graph(graph, (static,), (out,))
-        g.inputs[0].copy_(x)
-        g.graph.replay()
-        return g.outputs[0].clone()
+        with instrument.span("spfx.solve.graph", nrhs=nrhs) as sp:
+            g.inputs[0].copy_(x)
+            pair = sp.device_pair()
+            if pair is not None:
+                pair[0].record()
+            g.graph.replay()
+            if pair is not None:
+                pair[1].record()
+            # the caller's .cpu() would wait here anyway
+            torch.cuda.synchronize(self.device)
+            return g.outputs[0].clone()

@@ -27,8 +27,6 @@ passes ``device``; with neither, the entry points raise.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import scipy.sparse as sp
 import torch
@@ -39,6 +37,7 @@ from spfx_torch.chol.factorize import (
     use_host_solve)
 from spfx_torch.plan.schedule import FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
+from spfx_torch.utils import instrument
 from spfx_torch.utils.config import Config, DEFAULT
 
 
@@ -124,48 +123,49 @@ class LU:
         A = sp.csc_matrix(A)
         self.A = A
         self.config = config
-        t0 = time.perf_counter()
-        if config.static_pivot:
-            from spfx_torch.lu.pivot import static_pivot
-            self.row_perm = static_pivot(A)
-            A = sp.csc_matrix(A[self.row_perm])
-        else:
-            self.row_perm = None
-        self.sym = sym if sym is not None else analyze(A, config,
-                                                       symmetrize=True)
-        self.analyze_time = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.plan = build_plan(self.sym, A, config, lu=True)
-        self.plan_time = time.perf_counter() - t0
+        with instrument.timed("spfx.analyze") as span:
+            if config.static_pivot:
+                from spfx_torch.lu.pivot import static_pivot
+                self.row_perm = static_pivot(A)
+                A = sp.csc_matrix(A[self.row_perm])
+            else:
+                self.row_perm = None
+            self.sym = sym if sym is not None else analyze(A, config,
+                                                           symmetrize=True)
+        self.analyze_time = span.seconds
+        with instrument.timed("spfx.plan") as span:
+            self.plan = build_plan(self.sym, A, config, lu=True)
+        self.plan_time = span.seconds
         check_windows(self.plan)
         self._runner = None
         self._solver = None
 
     def entry_values(self, A: sp.spmatrix, permute_rows: bool = True):
         """Permuted L-lower and U^T strict-lower entry values — the only
-        data that crosses the host->device link per factorization."""
+        data that crosses the host->device link per factorization (the
+        static pivot's rows permuted inside ``spfx.entry.permute``)."""
         A = sp.csc_matrix(A)
         if permute_rows and self.row_perm is not None:
-            A = sp.csc_matrix(A[self.row_perm])
+            with instrument.span("spfx.entry.permute"):
+                A = sp.csc_matrix(A[self.row_perm])
         return entry_values(self.sym, A, self.config.dtype, self.device,
                             lu=True)
 
     def factorize(self, A: sp.spmatrix) -> LUFactor:
-        from spfx_torch.utils.instrument import finish_factorize, profile_scope
-        A = sp.csc_matrix(A)
-        t0 = time.perf_counter()
-        vals_l, vals_u = self.entry_values(A)
-        if self._runner is None:
-            self._runner, self._solver = make_engine(self, lu=True)
-        with profile_scope(self.config, "factorize"):
-            if engine_of(self.config) == "calls":
-                Lx, Ux = self._runner.trace_fn()(vals_l, vals_u)
-            else:
-                # graph replays on the card
-                Lx, Ux = self._runner.run(vals_l, vals_u)
-        f = LUFactor(A, self.sym, self.plan, Lx, Ux, self.config,
-                     solver=self._solver, row_perm=self.row_perm)
-        return finish_factorize(self, f, t0)
+        with instrument.timed("spfx.factorize") as req:
+            A = sp.csc_matrix(A)
+            vals_l, vals_u = self.entry_values(A)
+            if self._runner is None:
+                self._runner, self._solver = make_engine(self, lu=True)
+            with instrument.profile_scope(self.config, "factorize"):
+                if engine_of(self.config) == "calls":
+                    Lx, Ux = self._runner.trace_fn()(vals_l, vals_u)
+                else:
+                    # graph replays on the card
+                    Lx, Ux = self._runner.run(vals_l, vals_u)
+            f = LUFactor(A, self.sym, self.plan, Lx, Ux, self.config,
+                         solver=self._solver, row_perm=self.row_perm)
+            return instrument.finish_factorize(self, f, req.start_s)
 
 
 def lu(A: sp.spmatrix, config: Config = DEFAULT, device=None) -> LUFactor:
