@@ -236,6 +236,16 @@ def _solve_pass(solve1, b):
         return solve1(b)
 
 
+def permuted_entries(sym: Symbolic, A: sp.spmatrix, lu: bool = False) -> list:
+    """The host arrays of A's permuted lower-triangle entry values (LU: and
+    of the strict upper triangle's, transposed), in A's own dtype, in the
+    order the plan's assembly takes them."""
+    Ap = sp.csc_matrix(A)[sym.perm][:, sym.perm]
+    parts = [sp.tril(Ap).tocsc()] + ([sp.tril(Ap.T, -1).tocsc()] if lu
+                                      else [])
+    return [m.data for m in parts]
+
+
 def entry_values(sym: Symbolic, A: sp.spmatrix, dtype: str, device,
                  lu: bool = False) -> tuple:
     """The permuted lower-triangle entry values of A on ``device`` (LU: and
@@ -243,14 +253,60 @@ def entry_values(sym: Symbolic, A: sp.spmatrix, dtype: str, device,
     as the span ``spfx.entry.permute``, the copy as ``spfx.entry.copy``,
     its bytes counted as ``entry_bytes``."""
     with instrument.span("spfx.entry.permute"):
-        Ap = sp.csc_matrix(A)[sym.perm][:, sym.perm]
-        parts = [sp.tril(Ap).tocsc()] + ([sp.tril(Ap.T, -1).tocsc()] if lu
-                                          else [])
-        host = [m.data.astype(dtype) for m in parts]
+        host = [d.astype(dtype) for d in permuted_entries(sym, A, lu)]
     with instrument.span("spfx.entry.copy"):
         out = tuple(torch.as_tensor(h, device=device) for h in host)
     instrument.count("entry_bytes", sum(h.nbytes for h in host))
     return out
+
+
+class EntryMap:
+    """A context's entry values as one gather on the device, through a map
+    built once from the analysed pattern: element k of entry-values array
+    j is ``A.data[src[j][k]]`` for every A of that pattern (the same
+    shape, ``indptr`` and ``indices``).
+
+    ``host(M)`` is the context's host pipeline (``permuted_entries``, after
+    the static pivot's rows for LU); the map is what it gives on a copy of
+    the pattern whose values are 1 .. nnz in float64, exact, and none of
+    them zero. A cast commutes with a gather, so the mapped values are bit
+    for bit the pipeline's. A context builds none for a matrix that is not
+    in canonical format as the caller gives it (the pipeline would sum its
+    duplicates), and decides that before its analysis, which may sort the
+    matrix's arrays in place."""
+
+    def __init__(self, A: sp.csc_matrix, host, device):
+        self.shape = A.shape
+        self.indptr, self.indices = A.indptr, A.indices
+        probe = sp.csc_matrix((np.arange(1, A.nnz + 1, dtype=np.float64),
+                               A.indices, A.indptr), shape=A.shape)
+        self.device = device
+        self.src = tuple(torch.as_tensor(d.astype(np.int64) - 1,
+                                         device=device)
+                         for d in host(probe))
+
+    def matches(self, A: sp.csc_matrix) -> bool:
+        """Whether A has the map's pattern (identity first, then values)."""
+        return A.shape == self.shape and all(
+            a is b or np.array_equal(a, b)
+            for a, b in ((A.indptr, self.indptr), (A.indices, self.indices)))
+
+    def __call__(self, A: sp.csc_matrix, dtype: str) -> tuple | None:
+        """A's entry values on the map's device, as ``entry_values`` gives
+        them, counted ``entry_mapped``; None when A has another pattern.
+        The check and the cast are the span ``spfx.entry.permute``; the
+        copy of A's values and the gather, ``spfx.entry.copy``, its bytes
+        counted as ``entry_bytes``."""
+        with instrument.span("spfx.entry.permute"):
+            if not self.matches(A):
+                return None
+            host = A.data.astype(dtype)
+        with instrument.span("spfx.entry.copy"):
+            flat = torch.as_tensor(host, device=self.device)
+            out = tuple(flat.index_select(0, s) for s in self.src)
+        instrument.count("entry_mapped")
+        instrument.count("entry_bytes", host.nbytes)
+        return out
 
 
 def lower_entries(sym: Symbolic, plan: FactorPlan) -> tuple:
@@ -364,11 +420,15 @@ class Cholesky:
         A = sp.csc_matrix(A)
         self.A = A
         self.config = config
+        canonical = A.has_canonical_format     # before the analysis
         with instrument.timed("spfx.analyze") as span:
             self.sym = sym if sym is not None else analyze(A, config)
         self.analyze_time = span.seconds
         with instrument.timed("spfx.plan") as span:
             self.plan = build_plan(self.sym, A, config)
+            self._entry_map = EntryMap(
+                A, lambda M: permuted_entries(self.sym, M),
+                self.device) if canonical else None
         self.plan_time = span.seconds
         check_windows(self.plan)
         self._runner = None
@@ -376,8 +436,16 @@ class Cholesky:
 
     def entry_values(self, A: sp.spmatrix) -> torch.Tensor:
         """Permuted lower-triangle entry values — the only data that crosses
-        the host->device link per factorization."""
-        return entry_values(self.sym, A, self.config.dtype, self.device)[0]
+        the host->device link per factorization: through the context's
+        ``EntryMap`` when A has the analysed pattern, else the host
+        pipeline, counted ``entry_fallback``."""
+        A = sp.csc_matrix(A)
+        out = None if self._entry_map is None else \
+            self._entry_map(A, self.config.dtype)
+        if out is None:
+            instrument.count("entry_fallback")
+            out = entry_values(self.sym, A, self.config.dtype, self.device)
+        return out[0]
 
     def factorize(self, A: sp.spmatrix) -> CholeskyFactor:
         with instrument.timed("spfx.factorize") as req:

@@ -32,9 +32,9 @@ import scipy.sparse as sp
 import torch
 
 from spfx_torch.chol.factorize import (
-    _DTYPES, check_config, check_windows, device_solve, engine_of,
-    entry_values, lower_entries, make_engine, refined_solve, resolve_device,
-    use_host_solve)
+    _DTYPES, EntryMap, check_config, check_windows, device_solve, engine_of,
+    entry_values, lower_entries, make_engine, permuted_entries, refined_solve,
+    resolve_device, use_host_solve)
 from spfx_torch.plan.schedule import FactorPlan, build_plan
 from spfx_torch.symbolic.analyze import Symbolic, analyze
 from spfx_torch.utils import instrument
@@ -123,11 +123,12 @@ class LU:
         A = sp.csc_matrix(A)
         self.A = A
         self.config = config
+        canonical = A.has_canonical_format     # before the analysis
         with instrument.timed("spfx.analyze") as span:
             if config.static_pivot:
                 from spfx_torch.lu.pivot import static_pivot
                 self.row_perm = static_pivot(A)
-                A = sp.csc_matrix(A[self.row_perm])
+                A = self._pivot_rows(A)
             else:
                 self.row_perm = None
             self.sym = sym if sym is not None else analyze(A, config,
@@ -135,21 +136,41 @@ class LU:
         self.analyze_time = span.seconds
         with instrument.timed("spfx.plan") as span:
             self.plan = build_plan(self.sym, A, config, lu=True)
+            # over the user's pattern: the static pivot's rows folded in
+            self._entry_map = EntryMap(
+                self.A, lambda M: permuted_entries(
+                    self.sym, self._pivot_rows(M), lu=True),
+                self.device) if canonical else None
         self.plan_time = span.seconds
         check_windows(self.plan)
         self._runner = None
         self._solver = None
 
+    def _pivot_rows(self, A: sp.csc_matrix) -> sp.csc_matrix:
+        """A with the static pivot's rows permuted (A itself without)."""
+        if self.row_perm is None:
+            return A
+        return sp.csc_matrix(A[self.row_perm])
+
     def entry_values(self, A: sp.spmatrix, permute_rows: bool = True):
         """Permuted L-lower and U^T strict-lower entry values — the only
-        data that crosses the host->device link per factorization (the
-        static pivot's rows permuted inside ``spfx.entry.permute``)."""
+        data that crosses the host->device link per factorization: through
+        the context's ``EntryMap`` (the static pivot's rows folded in) when
+        A has the analysed pattern, else the host pipeline (the static
+        pivot's rows permuted inside ``spfx.entry.permute`` unless
+        ``permute_rows`` is False), counted ``entry_fallback``."""
         A = sp.csc_matrix(A)
-        if permute_rows and self.row_perm is not None:
-            with instrument.span("spfx.entry.permute"):
-                A = sp.csc_matrix(A[self.row_perm])
-        return entry_values(self.sym, A, self.config.dtype, self.device,
-                            lu=True)
+        out = None
+        if self._entry_map is not None and permute_rows:
+            out = self._entry_map(A, self.config.dtype)
+        if out is None:
+            instrument.count("entry_fallback")
+            if permute_rows and self.row_perm is not None:
+                with instrument.span("spfx.entry.permute"):
+                    A = self._pivot_rows(A)
+            out = entry_values(self.sym, A, self.config.dtype, self.device,
+                               lu=True)
+        return out
 
     def factorize(self, A: sp.spmatrix) -> LUFactor:
         with instrument.timed("spfx.factorize") as req:

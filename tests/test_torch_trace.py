@@ -78,8 +78,8 @@ def test_span_tree_of_a_factorization(rec, lu, pivot):
     for name in ("spfx.entry.permute", "spfx.entry.copy", "spfx.replay",
                  "spfx.solve"):
         assert all(s["parent"] == top["id"] for s in spans[name]), name
-    # the static pivot's row permutation is a permute span of its own
-    assert len(spans["spfx.entry.permute"]) == 1 + pivot
+    # the entry map folds the static pivot's rows in: one permute span
+    assert len(spans["spfx.entry.permute"]) == 1
     assert len(spans["spfx.entry.copy"]) == 1
     (solve,) = spans["spfx.solve"]
     passes = spans["spfx.solve.pass"]
@@ -101,9 +101,9 @@ def test_span_tree_of_a_factorization(rec, lu, pivot):
     assert ctx.analyze_time == pytest.approx(want["spfx.analyze"])
     assert ctx.plan_time == pytest.approx(want["spfx.plan"])
     assert 0 < ctx.factorize_time <= top["ms"] / 1e3
-    assert req["counters"]["entry_bytes"] == sum(
-        v.numel() * v.element_size() for v in (
-            ctx.entry_values(A) if lu else (ctx.entry_values(A),)))
+    # the bytes copied are A's values, once, gathered on the device
+    assert req["counters"]["entry_mapped"] == 1
+    assert req["counters"]["entry_bytes"] == A.nnz * ctx.dtype.itemsize
 
 
 @pytest.mark.parametrize("lu", [False, True], ids=["chol", "lu"])
