@@ -14,10 +14,16 @@ from __future__ import annotations
 import torch
 
 # NVIDIA H100 SXM data sheet (copied from chip_smoke.py:225-228): dense
-# rates, without sparsity, at the full 700 W power limit
+# rates, without sparsity, at the full 700 W power limit; a complex type
+# runs at its parts' real rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core rates
-              "float64": 34e12}
+              "float64": 34e12,
+              "complex64": 67e12,
+              "complex128": 34e12}
+# real operations a complex operation takes, against one real: a complex
+# multiply-add is four real multiply-adds
+COMPLEX_OPS = 4
 
 ALIGN = 1024    # spfx_torch/plan/schedule.py:903, the UT superwindow grain
 NB = 32         # spfx_torch/kernels/panel.py:43, the diagonal block size
@@ -111,16 +117,27 @@ def extend_add_bytes(rows, csp: int, item: int) -> float:
                  + 4 * rows.shape[0])
 
 
-def path_bound_ms(plan, kernel: str, dtype: str, arrays: int) -> float:
-    """The least time the card could take for all of one factorization's
-    calls of ``kernel`` ("window_gather2", "potrf_inv" or "getrf_inv"),
-    from the plan's tables; ``arrays`` is the number of factor arrays that
-    each UT step gathers from (1 for Cholesky, 2 for LU)."""
+def path_work(plan, kernel: str, dtype: str, arrays: int):
+    """(bytes, operations) of all of one factorization's calls of
+    ``kernel`` ("window_gather2", "potrf_inv" or "getrf_inv"), from the
+    plan's tables; ``arrays`` is the number of factor arrays that each UT
+    step gathers from (1 for Cholesky, 2 for LU). A value of ``dtype``
+    takes its element size; a complex one's operations are counted as
+    real ones."""
     item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     if kernel == "window_gather2":
         nbytes = sum(gather_bytes(c, item)
                      for c in gather_calls(plan, torch.device("cpu")))
-        return bound(arrays * nbytes, 0.0, dtype)[0]
+        return arrays * nbytes, 0.0
     work = potrf_work if kernel == "potrf_inv" else getrf_work
     done = [work(w, nb, item) for w, nb in plan_diag_calls(plan)]
-    return bound(sum(b for b, _ in done), sum(o for _, o in done), dtype)[0]
+    ops = sum(o for _, o in done)
+    if dtype.startswith("complex"):
+        ops *= COMPLEX_OPS
+    return sum(b for b, _ in done), ops
+
+
+def path_bound_ms(plan, kernel: str, dtype: str, arrays: int) -> float:
+    """The least time the card could take for all of one factorization's
+    calls of ``kernel`` (as ``path_work``)."""
+    return bound(*path_work(plan, kernel, dtype, arrays), dtype)[0]

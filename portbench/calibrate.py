@@ -7,37 +7,39 @@ configurations' files were set from these readings.
 
 For each seed the cell's inputs are drawn again on one context, the mix's
 requests run ``--requests`` times (at least the sample a run judges), and
-the sample is judged as a run judges it. The control is the program with
-its own lower-precision path switched on: ``matmul_precision="default"``,
-TF32 products on the card, the nearest precision below float32 with TF32
-off. One JSON line a reading, on standard output and in ``--out``. Runs on
-the card only; the benchmark's own runs never run it.
+the sample is judged as a run judges it. The control is the program one
+rung below the configuration's dtype on the precision ladder
+(``reference.LADDER``): for float32 and complex64 its own TF32 path
+(``matmul_precision="default"``), for float64 and complex128 the program
+at float32 and complex64. One JSON line a reading, on standard output and
+in ``--out``. Runs on the card only; the benchmark's own runs never run
+it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
-from portbench import spec as specs
+from portbench import reference, spec as specs
 from portbench.run import merge
-
-CONTROL = {"program_config": {"matmul_precision": "default"}}
 
 
 def readings(workload: str, seeds, requests: int, side: str, device,
-             patch=None, roots=None):
+             patch=None, roots=None, spec: dict | None = None):
     """Yield one dict a seed: the cell's checked numbers for ``side``
-    ("program" or "control")."""
-    spec = specs.load_spec()
+    ("program" or "control"). ``roots`` and ``spec`` are as
+    ``portbench.run.main``'s."""
+    spec = specs.load_spec() if spec is None else spec
     work, conf = specs.cell(spec, workload)
-    with open(f"{specs.ROOT}/{conf['file']}") as fh:
+    with open(os.path.join(specs.ROOT, conf["file"])) as fh:
         config = json.load(fh)
     config = merge(config, patch or {})
     if side == "control":
-        config = merge(config, CONTROL)
+        config = merge(config, reference.rung(config)["control"])
     mix = specs.load_json("traffic", work["traffic"], roots)
     driver = specs.load_module("drivers", config["driver"], roots)
     cell = None

@@ -1,7 +1,8 @@
 """How ``correct`` is decided: the checks pass the program's answers,
-fail the control (the reference in TF32, the precision below the
-configurations' float32 with TF32 off), and fail a run whose timed path
-is broken underneath, once for each fault a cell can have."""
+fail the control (the reference one rung below the configuration's dtype
+on the precision ladder: TF32 below float32 with TF32 off), and fail a run
+whose timed path is broken underneath, once for each fault a cell can
+have."""
 
 import json
 
@@ -10,7 +11,6 @@ import pytest
 import torch
 
 from portbench import reference, spec as specs
-from portbench.families.gen57pt import Family
 from portbench.tests.conftest import card
 
 SPEC = specs.load_spec()
@@ -19,35 +19,38 @@ CONFIGS = {c["name"]: json.load(open(f"{specs.ROOT}/{c['file']}"))
 CELLS = [w["name"] for w in SPEC["workloads"]]
 
 
-def dense_reading(conf, mantissa, grid=12, seed=11):
-    """The check's number for the dense reference factor at ``mantissa``
-    bits, put in the program's place, of a value set of ``conf``."""
-    f = Family(dict(conf, grid=grid))
+def dense_reading(conf, mantissa, grid=12, seed=11, roots=None):
+    """The check's number for the dense reference factor, in the
+    configuration's dtype with its trailing products at ``mantissa`` bits,
+    put in the program's place, of a value set of ``conf``'s own family."""
+    f = specs.load_module("families", conf["family"], roots).Family(
+        dict(conf, grid=grid))
     A = f.matrix(f.values(np.random.default_rng(seed), 1)[0])
     Ad = A.toarray()
+    dtype = reference.dtype_of(conf)
     r, c = np.tril_indices(A.shape[0])
     if conf["kind"] == "lu":
-        L, U = reference.dense_lu(Ad, mantissa)
-        lv, uv = L.double().numpy()[r, c], U.double().numpy().T[r, c]
+        L, U = reference.dense_lu(Ad, mantissa, dtype=dtype)
+        lv, uv = L.numpy()[r, c], U.numpy().T[r, c]
     else:
-        lv, uv = reference.dense_cholesky(Ad, mantissa).double().numpy()[
+        lv, uv = reference.dense_cholesky(Ad, mantissa, dtype=dtype).numpy()[
             r, c], None
     return reference.factor_backward_error(A, np.arange(A.shape[0]), r, c,
                                            lv, uv)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_reference_in_float32_passes(name):
+def test_reference_at_own_precision_passes(name):
     conf = CONFIGS[name]
     assert dense_reading(conf, None) <= conf["limits"][
         "factor_backward_error"] / 3
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_control_in_tf32_fails(name):
+def test_control_one_rung_below_fails(name):
     conf = CONFIGS[name]
-    assert dense_reading(conf, reference.TF32_MANTISSA) > conf["limits"][
-        "factor_backward_error"]
+    assert dense_reading(conf, reference.rung(conf)["mantissa"]) > conf[
+        "limits"]["factor_backward_error"]
 
 
 def test_round_mantissa():
@@ -135,8 +138,9 @@ def test_broken_timed_path_is_not_correct(run_cell, monkeypatch, workload,
 @pytest.mark.card
 @pytest.mark.parametrize("workload", CELLS)
 def test_control_on_the_card(workload):
-    """The program with its TF32 path on fails the cell's check, and the
-    program as configured passes it, at a grid a test run can hold."""
+    """The program one rung below on the ladder (for float32, its TF32
+    path) fails the cell's check, and the program as configured passes it,
+    at a grid a test run can hold."""
     card()
     from portbench.calibrate import readings
     dev = torch.device("cuda", 0)
