@@ -429,6 +429,7 @@ class Cholesky:
             self._entry_map = EntryMap(
                 A, lambda M: permuted_entries(self.sym, M),
                 self.device) if canonical else None
+            span.set(**instrument.plan_attrs(self.plan, self.dtype, 1))
         self.plan_time = span.seconds
         check_windows(self.plan)
         self._runner = None
@@ -448,7 +449,8 @@ class Cholesky:
         return out[0]
 
     def factorize(self, A: sp.spmatrix) -> CholeskyFactor:
-        with instrument.timed("spfx.factorize") as req:
+        with instrument.timed("spfx.factorize",
+                              dtype=self.config.dtype) as req:
             A = sp.csc_matrix(A)
             vals = self.entry_values(A)
             if self._runner is None:

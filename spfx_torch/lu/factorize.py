@@ -141,6 +141,7 @@ class LU:
                 self.A, lambda M: permuted_entries(
                     self.sym, self._pivot_rows(M), lu=True),
                 self.device) if canonical else None
+            span.set(**instrument.plan_attrs(self.plan, self.dtype, 2))
         self.plan_time = span.seconds
         check_windows(self.plan)
         self._runner = None
@@ -173,7 +174,8 @@ class LU:
         return out
 
     def factorize(self, A: sp.spmatrix) -> LUFactor:
-        with instrument.timed("spfx.factorize") as req:
+        with instrument.timed("spfx.factorize",
+                              dtype=self.config.dtype) as req:
             A = sp.csc_matrix(A)
             vals_l, vals_u = self.entry_values(A)
             if self._runner is None:

@@ -345,6 +345,17 @@ def _request_dict(r: dict) -> dict:
                        for n, sid, ms in r["device"] if ms is not None]}
 
 
+def plan_attrs(plan, dtype: torch.dtype, arrays: int) -> dict:
+    """The ``spfx.plan`` span's attributes: the context's arithmetic and
+    the work its plan holds (operations of one factorization, the length
+    of each of its ``arrays`` flat value arrays and their bytes)."""
+    values = int(plan.storage)
+    return {"dtype": str(dtype).removeprefix("torch."),
+            "itemsize": dtype.itemsize, "flops": float(plan.flops),
+            "factor_values": values,
+            "factor_bytes": values * dtype.itemsize * arrays}
+
+
 RECORDER = Recorder()
 span = RECORDER.span
 timed = RECORDER.timed

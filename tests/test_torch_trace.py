@@ -106,6 +106,25 @@ def test_span_tree_of_a_factorization(rec, lu, pivot):
     assert req["counters"]["entry_bytes"] == A.nnz * ctx.dtype.itemsize
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex64",
+                                   "complex128"])
+@pytest.mark.parametrize("lu", [False, True], ids=["chol", "lu"])
+def test_plan_and_request_carry_the_arithmetic(rec, lu, dtype):
+    ctx, A = _context(lu, dtype=dtype)
+    (plan,) = [s for s in rec.snapshot()["setup"]
+               if s["name"] == "spfx.plan"]
+    size = {"float32": 4, "float64": 8, "complex64": 8, "complex128": 16}
+    arrays = 2 if lu else 1
+    assert plan["attrs"] == {
+        "dtype": dtype, "itemsize": size[dtype], "flops": ctx.plan.flops,
+        "factor_values": ctx.plan.storage,
+        "factor_bytes": ctx.plan.storage * size[dtype] * arrays}
+    ctx.factorize(A)
+    (req,) = rec.snapshot()["requests"]
+    (top,) = _by_name(req)["spfx.factorize"]
+    assert top["attrs"] == {"dtype": dtype}
+
+
 @pytest.mark.parametrize("lu", [False, True], ids=["chol", "lu"])
 def test_counters_of_a_refined_solve(rec, lu):
     ctx, A = _context(lu, solve_backend="device")
