@@ -7,7 +7,7 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
-2. build: the CUDA kernels from spfx_torch/kernels/csrc (eleven sources,
+2. build: the CUDA kernels from spfx_torch/kernels/csrc (twelve sources,
    one nvcc each, started together), timed;
 3. kernels: every window_gather2 and potrf_inv call of the 48^3 f32
    Cholesky plan (the starts of its UT buckets, the 32x32 diagonal blocks
@@ -65,6 +65,19 @@ non-zero):
    within the bf16x3 error model and below one bf16 pass's error; times
    against torch.bmm at full float32 and at TF32, and its bound, at the
    largest product and over all of them;
+3h. level_solve (csrc/level_solve.cu) on device-solve contexts of the
+   48^3 f32 Cholesky and LU (phase 3's analysis): every PC bucket forward
+   in order, then backward in reverse, nrhs 16, against the torch chain it
+   replaces (blocks.solve_fwd_level_c / solve_bwd_level_c) on the same x,
+   in f32 and on the factor widened to f64, within 1e-5 / 1e-12 of the
+   chain's largest entry, the sentinel row untouched; the factor's own
+   device solve (f.solve, nrhs 16), whose graph holds one level_solve
+   launch a bucket and sweep (the kernels line's launches); each solve
+   graph captured through the kernel and through the chain, its replay
+   timed, and each of its bucket steps timed by events between them (the
+   five slowest of each route); at the Cholesky's largest bucket by the
+   factor's bytes, the forward and backward launches timed against the
+   plain version (eager) and the chain, and their bound;
 4. Cholesky main path: spfx_torch.Cholesky(laplacian_3d(48)) with the
    default Config, whose engine "mega" captures the walk into a CUDA
    graph at the first factorization (an eager warm-up first) and replays
@@ -206,7 +219,7 @@ non-zero):
    the custom kernel's S and G against the einsum strategy, and the times
    of syrk_gemm_batched, its plain version and a torch.bmm pair, with its
    bound;
-7. the ``kernels`` JSON line (fourteen kernels), the nvidia-smi line, then
+7. the ``kernels`` JSON line (fifteen kernels), the nvidia-smi line, then
    the final ``ok`` JSON line.
 
 ``--profile`` adds a torch.profiler pass over one 48^3 factorization (a
@@ -1634,6 +1647,204 @@ def bmm_bf16x3_row(shapes, gen, dev):
                           ops_all / BF16_PEAK) * 1e3)
     del pins
     return row
+
+
+# --------------------------------------------------------------------------
+# phase 3h: level_solve at the 48^3 solve's buckets
+# --------------------------------------------------------------------------
+
+def _solve_bucket(F, x, pb, fwd: bool, lu: bool, path: str):
+    """One bucket's level solve in place on x by ``path``: "kernel"
+    (level_solve), "plain" (its plain version) or "chain" (blocks)."""
+    from spfx_torch.kernels import blocks, level_solve
+    tabs = pb.to(F.device)
+    kw = dict(cp=pb.cp, rbp=pb.rbp)
+    if path == "chain":
+        fn = blocks.solve_fwd_level_c if fwd else blocks.solve_bwd_level_c
+        return fn(F, x, *tabs, lu=lu, **kw)
+    if path == "plain":
+        fn = (level_solve.level_solve_fwd_plain if fwd
+              else level_solve.level_solve_bwd_plain)
+    else:
+        fn = level_solve.level_solve_fwd if fwd else level_solve.level_solve_bwd
+    return fn(F, x, *tabs, **(dict(kw, unit=lu) if fwd else kw))
+
+
+def check_level_solve(F, G, pbs, n: int, lu: bool, nrhs: int, gen) -> float:
+    """Every bucket forward over F in order (unit for LU), then backward
+    over G in reverse, kernel against chain on the same x; the largest
+    difference relative to the chain's largest entry. The sentinel row n
+    must stay 0."""
+    import torch
+    x = torch.randn((n + 1, nrhs), generator=gen, device=F.device).to(
+        F.dtype)
+    x[n] = 0
+    worst = 0.0
+    for fwd, Fk, order in ((True, F, pbs), (False, G, pbs[::-1])):
+        for pb in order:
+            xk, xc = x.clone(), x.clone()
+            _solve_bucket(Fk, xk, pb, fwd, lu, "kernel")
+            _solve_bucket(Fk, xc, pb, fwd, lu, "chain")
+            if float(xk[n].abs().max()) != 0.0:
+                fail(f"level_solve wrote the sentinel row (cp {pb.cp}, rbp "
+                     f"{pb.rbp}, {'fwd' if fwd else 'bwd'})")
+            worst = max(worst, max_diff(xk[:n], xc[:n])
+                        / float(xc[:n].abs().max()))
+            x = xc
+    return worst
+
+
+def step_times(dev, solver, F, G, pbs, lu: bool, x) -> list:
+    """Device ms of every bucket step of one solve pass on x (forward over
+    F in order, backward over G in reverse), by the route ``solve_step``
+    takes: the pass captured into one graph with an external event
+    recorded after each step, replayed 5 times, each step's median.
+    Returns [(ms, "fwd" | "bwd", tasks, cp, rbp), ...] in step order."""
+    import torch
+    from spfx_torch.kernels import mega
+    steps = ([(True, F, pb) for pb in pbs]
+             + [(False, G, pb) for pb in pbs[::-1]])
+    ev = [torch.cuda.Event(enable_timing=True, external=True)
+          for _ in range(len(steps) + 1)]
+    for e in ev:
+        e.record()              # created here, not inside the capture
+
+    def run(x):
+        on = torch.cuda.is_current_stream_capturing()
+        with mega.matmul_precision(solver.config.matmul_precision):
+            if on:
+                ev[0].record(torch.cuda.current_stream())
+            for i, (fwd, Fk, pb) in enumerate(steps):
+                mega.solve_step(Fk, x, pb, dev, lu, forward=fwd)
+                if on:
+                    ev[i + 1].record(torch.cuda.current_stream())
+        return x
+
+    g = mega._capture(dev, run, (x,))[0]
+    per = [[] for _ in steps]
+    for _ in range(5):
+        g.replay()
+        torch.cuda.synchronize()
+        for i, p in enumerate(per):
+            p.append(ev[i].elapsed_time(ev[i + 1]))
+    del g
+    return [(statistics.median(p), "fwd" if fwd else "bwd", len(pb.widths),
+             pb.cp, pb.rbp) for p, (fwd, _, pb) in zip(per, steps)]
+
+
+def level_solve_phase(A, sym, dev, gen):
+    """level_solve on the 48^3 f32 Cholesky and LU factors (device-solve
+    contexts on phase 3's analysis): every bucket against the chain in
+    f32 and in f64 (the f32 factor widened), nrhs 16, within 1e-5 / 1e-12
+    of the chain's largest entry; the whole solve graph a pass through the
+    kernel and through the chain, and each of its bucket steps
+    (``step_times``: the five slowest of each route); the factor's own
+    device solve (``f.solve``, nrhs 16, unrefined), its graph's
+    level_solve launches one a bucket and sweep; at the Cholesky's largest
+    bucket by the factor's bytes, the forward and backward launches timed
+    against the plain version and the chain, with the bound. Returns (the
+    kernels line's row, the largest errors by kind and dtype, the launch
+    counts of the device solve's capture by path)."""
+    import numpy as np
+    import torch
+    import spfx_torch
+    from spfx_torch import Config
+    from spfx_torch.bench.kernel_probe import unsym_laplacian
+    from spfx_torch.kernels import _cuda, level_solve, mega
+    errs, paths, row = {}, {}, {}
+    for lu in (False, True):
+        kind = "lu" if lu else "cholesky"
+        M = unsym_laplacian(GRID) if lu else A
+        ctx = (spfx_torch.LU if lu else spfx_torch.Cholesky)(
+            M, Config(solve_backend="device"), sym=sym, device=dev)
+        f = ctx.factorize(M)
+        F, G = (f.Lx, f.Ux) if lu else (f.L, f.L)
+        n = M.shape[0]
+        pbs = [pb for lp in ctx.plan.levels for pb in lp.panels]
+        for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
+            dt = getattr(torch, dtype)
+            e = errs[(kind, dtype)] = check_level_solve(
+                F.to(dt), G.to(dt), pbs, n, lu, 16, gen)
+            if not e <= tol:
+                fail(f"level_solve {kind} {dtype}: {e:.3e} of the chain's "
+                     f"largest entry > {tol}")
+        # the factor's own device solve: its graph's capture launches
+        f._solve_graphs.clear()
+        f.solve(np.random.default_rng(16).standard_normal((n, 16)),
+                refine=0)
+        launches = dict(ctx._solver.captures[16]["launches"])
+        if launches["level_solve"] != 2 * len(pbs):
+            fail(f"{kind} device solve: {launches['level_solve']} "
+                 f"level_solve launches in its graph for {2 * len(pbs)} "
+                 f"bucket steps")
+        paths[f"{kind}_solve"] = launches
+        solver = ctx._solver
+        path_ms, top = {}, {}
+        for tag in ("kernel", "chain"):
+            x = torch.randn((n + 1, 16), generator=gen, device=dev)
+            x[n] = 0
+            takes = level_solve.takes
+            if tag == "chain":
+                level_solve.takes = lambda F, pb: False
+            try:
+                g, _, _, _, launches = mega._capture(
+                    dev, lambda x: solver._eager(F, G, x), (x,))
+                st = step_times(dev, solver, F, G, pbs, lu, x.clone())
+            finally:
+                level_solve.takes = takes
+            if launches["level_solve"] != (2 * len(pbs) if tag == "kernel"
+                                           else 0):
+                fail(f"{kind} solve graph through the {tag}: "
+                     f"{launches['level_solve']} level_solve launches for "
+                     f"{2 * len(pbs)} bucket steps")
+            path_ms[tag] = time_ms(g.replay, reps=1, rounds=10, graph=False)
+            top[tag] = sorted(st, reverse=True)[:5]
+            top[tag + "_sum"] = sum(t[0] for t in st)
+            del g
+        pre = "lu_" if lu else ""
+        row.update({pre + "top5": top["kernel"],
+                    pre + "library_top5": top["chain"],
+                    pre + "steps_ms": top["kernel_sum"],
+                    pre + "library_steps_ms": top["chain_sum"]})
+        if lu:
+            row.update(lu_path_ms=path_ms["kernel"],
+                       lu_library_path_ms=path_ms["chain"])
+            del f, ctx
+            torch.cuda.empty_cache()
+            continue
+
+        def nbytes(pb):
+            w = pb.widths.astype(np.float64)
+            return float((w * (w + 1) / 2 + w * pb.nbelow).sum()) * 4
+        pb = max(pbs, key=nbytes)
+        w, nb = pb.widths.astype(np.float64), pb.nbelow.astype(np.float64)
+        x = torch.randn((n + 1, 16), generator=gen, device=dev)
+        x[n] = 0
+        ms = {}
+        for fwd in (True, False):
+            for path in ("kernel", "plain", "chain"):
+                xs = x.clone()
+                plain = path == "plain"
+                ms[(fwd, path)] = time_ms(
+                    lambda: _solve_bucket(F, xs, pb, fwd, False, path),
+                    reps=2 if plain else 10, rounds=3 if plain else 5,
+                    graph=not plain)
+        # bytes: the factor's blocks once, x's rows read and written;
+        # operations: a multiply-add (2) for each product and solve entry
+        byts = nbytes(pb) + float((w + nb).sum()) * 16 * 4 * 2
+        ops = float((w * w + 2 * w * nb).sum()) * 16
+        bms, by = bound(byts, ops, "float32")
+        row.update(ms=ms[(True, "kernel")], ms_bwd=ms[(False, "kernel")],
+                   plain_ms=ms[(True, "plain")],
+                   plain_ms_bwd=ms[(False, "plain")],
+                   library_ms=ms[(True, "chain")],
+                   library_ms_bwd=ms[(False, "chain")], bound_ms=bms,
+                   bound_by=by, shape=[len(pb.widths), pb.cp, pb.rbp, 16],
+                   path_ms=path_ms["kernel"],
+                   library_path_ms=path_ms["chain"])
+        del f, ctx
+        torch.cuda.empty_cache()
+    return row, errs, paths
 
 
 # --------------------------------------------------------------------------
@@ -3242,9 +3453,28 @@ def main(argv) -> int:
 
     mark("3g")
 
+    # 3h. level_solve at every bucket of the 48^3 f32 solves, against the
+    # chain, and its times at the largest bucket and over a pass
+    t0 = time.perf_counter()
+    rows["level_solve"], lerr, lpaths = level_solve_phase(A, ctx.sym, dev,
+                                                          cgen)
+    errs[("level_solve", "float32")] = max(
+        v for (k, d), v in lerr.items() if d == "float32")
+    log("[kernels] level_solve at every bucket of the 48^3 Cholesky and LU "
+        "solves, nrhs 16, against the chain: largest error relative to the "
+        "chain's largest entry " + ", ".join(
+            f"{k} {d} {v:.3e}" for (k, d), v in lerr.items())
+        + "; level_solve launches of the device solve's graph " + json.dumps(
+            {p: l["level_solve"] for p, l in lpaths.items()})
+        + " (" + f"{time.perf_counter() - t0:.1f} s); timing "
+        + json.dumps(rows["level_solve"]))
+    torch.cuda.empty_cache()
+
+    mark("3h")
+
     # 4. Cholesky main path, 48^3 f32 with the default Config; 4c. the same
     # under SPFX_PANEL_KERNEL=lanes, then wide
-    paths = {}
+    paths = dict(lpaths)
     graph_paths = {}
     device_ms = {}
     defaults = {}       # kind -> (the default factor's arrays, steady wall)
@@ -3592,6 +3822,9 @@ def main(argv) -> int:
                         "lu_c64"),
         "bmm_bf16x3": (cu + "bmm_bf16x3.cu", "spfx/kernels/mega.py:383",
                        "cholesky_high"),
+        # no Pallas kernel: the JAX package's level solves are lax.linalg's
+        "level_solve": (cu + "level_solve.cu", "spfx/kernels/blocks.py:951",
+                        "cholesky_solve"),
     }
     kernels = []
     for name, (source, replaces, own) in info.items():
@@ -3616,7 +3849,10 @@ def main(argv) -> int:
             "library_tf32_ms": r.get("library_tf32_ms"),
             "ms_c128": r.get("ms_c128"), "ms_b1_c128": r.get("ms_b1_c128"),
             "path_ms_c128": r.get("path_ms_c128"),
-            "bound_ms_c128": r.get("bound_ms_c128")})
+            "bound_ms_c128": r.get("bound_ms_c128"),
+            "ms_bwd": r.get("ms_bwd"), "plain_ms_bwd": r.get("plain_ms_bwd"),
+            "library_ms_bwd": r.get("library_ms_bwd"),
+            "lu_library_path_ms": r.get("lu_library_path_ms")})
     for k in kernels:
         for v in k.values():
             if isinstance(v, float) and not math.isfinite(v):

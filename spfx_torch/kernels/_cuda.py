@@ -88,6 +88,12 @@ _SIGNATURES = {
     "bmm_bf16x3": {"spfx_bmm_bf16x3_fast_f32": [_vp, _c_ll, _c_ll, _vp,
                                                 _c_ll, _c_ll, _vp]
                    + [_c_int] * 6 + [_vp]},
+    # (F, x, widths, nbelow, diag_start, below_start, xcols, xrows, yg[,
+    # ws], cnt, B, cp, rbp, nrhs, ch, nbuf[, unit], stream)
+    "level_solve": {**{f"spfx_level_solve_fwd_{t}": [_vp] * 10 + [_c_int] * 7
+                       + [_vp] for t in ("f32", "f64")},
+                    **{f"spfx_level_solve_bwd_{t}": [_vp] * 11 + [_c_int] * 6
+                       + [_vp] for t in ("f32", "f64")}},
 }
 
 _libs: dict = {}
@@ -97,7 +103,8 @@ _launches = {"window_gather2": 0, "window_gather": 0, "potrf_inv": 0,
              "getrf_inv": 0, "chol_panel_lanes": 0, "lu_panel_lanes": 0,
              "chol_panel_wide": 0, "lu_panel_wide": 0, "extend_add_rows": 0,
              "syrk_gemm_batched": 0, "cholesky_small_batched": 0,
-             "potrf_inv_c": 0, "getrf_inv_c": 0, "bmm_bf16x3": 0}
+             "potrf_inv_c": 0, "getrf_inv_c": 0, "bmm_bf16x3": 0,
+             "level_solve": 0}
 
 
 def count(name: str) -> None:

@@ -29,12 +29,16 @@ Each ``run`` copies the new entry values in, replays the graph and returns
 a clone of the factor: the graph's output lives in its private memory pool
 and the next replay overwrites it.
 
-``MegaSolver`` runs the level solves over the levels' panel buckets
-(``blocks.solve_fwd_level_c`` / ``solve_bwd_level_c`` on PC buckets,
-``blocks.solve_fwd_level`` / ``solve_bwd_level`` on rowwin P buckets),
-forward in order and backward in reverse; on a CUDA device one graph per
+``MegaSolver`` runs the level solves over the levels' panel buckets,
+forward in order and backward in reverse: on the card a PC bucket of a
+real factor is one launch of ``level_solve`` a sweep, which reads the
+bucket's blocks where they lie; the CPU, complex factors and rowwin P
+buckets take the torch chain (``blocks.solve_fwd_level_c`` /
+``solve_bwd_level_c`` on PC buckets, ``blocks.solve_fwd_level`` /
+``solve_bwd_level`` on rowwin P buckets). On a CUDA device one graph per
 factor and right-hand-side count, cached by the factor, holds both
-sweeps.
+sweeps; each solve counts its bucket steps by path (the recorder's
+``solve_kernel_steps`` and ``solve_chain_steps``).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import time
 import numpy as np
 import torch
 
-from spfx_torch.kernels import _cuda, blocks, matmul, route
+from spfx_torch.kernels import _cuda, blocks, level_solve, matmul, route
 from spfx_torch.plan.schedule import PanelBucketC, UpdateBucketC
 from spfx_torch.utils import instrument
 from spfx_torch.utils.config import Config, DEFAULT
@@ -107,6 +111,7 @@ class _Graph:
     inputs: tuple
     outputs: tuple
     stamps: "instrument.Stamps | None" = None
+    steps: "dict | None" = None     # a solve graph's bucket steps by path
 
 
 def _capture(device, fn, inputs, pool=None) -> tuple:
@@ -211,9 +216,16 @@ def walk_levels(arrays, levels, lu: bool, config: Config, device,
 
 
 def solve_step(F, x, pb, device, lu: bool, forward: bool) -> None:
-    """One panel bucket's level solve, in place on x, by the bucket's
-    kind."""
-    if isinstance(pb, PanelBucketC):
+    """One panel bucket's level solve, in place on x, by the bucket's kind
+    and the factor's dtype and device (``level_solve.takes``)."""
+    if level_solve.takes(F, pb):
+        if forward:
+            level_solve.level_solve_fwd(F, x, *pb.to(device), cp=pb.cp,
+                                        rbp=pb.rbp, unit=lu)
+        else:
+            level_solve.level_solve_bwd(F, x, *pb.to(device), cp=pb.cp,
+                                        rbp=pb.rbp)
+    elif isinstance(pb, PanelBucketC):
         fn = blocks.solve_fwd_level_c if forward else blocks.solve_bwd_level_c
         fn(F, x, *pb.to(device), cp=pb.cp, rbp=pb.rbp, lu=lu)
     else:
@@ -346,8 +358,8 @@ class MegaSolver:
         self.lu = lu
         self.config = config
         self.device = _device(device)
-        # nrhs -> {"warmup_s", "capture_s", "launches"}: the latest capture
-        # of a solve graph for that many right-hand sides
+        # nrhs -> {"warmup_s", "capture_s", "launches", "steps"}: the
+        # latest capture of a solve graph for that many right-hand sides
         self.captures: dict = {}
 
     def _panels(self):
@@ -371,12 +383,31 @@ class MegaSolver:
         with matmul_precision(self.config.matmul_precision):
             return self.backward(G, self.forward(F, x))
 
+    def steps(self, launches: dict | None = None) -> dict:
+        """{"kernel": k, "chain": c}: how many of one solve's bucket steps
+        (both sweeps) took the level-solve kernel and how many the chain:
+        k the ``level_solve`` launches of a capture (``launches``), none
+        without one (the eager solve of the CPU)."""
+        total = 2 * len(self._panels())
+        k = 0 if launches is None else launches["level_solve"]
+        return {"kernel": k, "chain": total - k}
+
+    @staticmethod
+    def _count_steps(steps: dict) -> None:
+        """The counters ``solve_kernel_steps`` and ``solve_chain_steps`` of
+        one solve's bucket steps."""
+        for p, n in steps.items():
+            instrument.count(f"solve_{p}_steps", n)
+
     def solve(self, F, G, x, graphs: dict):
         """Forward over F, then backward over G, of x (n + 1, nrhs) (row n
         the sentinel), in place on the CPU. On the card the two sweeps are
         one replay of a graph that ``graphs`` (a dict the factor owns)
-        keeps by nrhs; the solution is returned as a new tensor."""
+        keeps by nrhs; the solution is returned as a new tensor. Each
+        solve counts its bucket steps by path (``steps``, from the
+        capture's launches on the card)."""
         if self.device.type != "cuda":
+            self._count_steps(self.steps())
             return self._eager(F, G, x)
         nrhs = x.shape[1]
         g = graphs.get(nrhs)
@@ -386,10 +417,11 @@ class MegaSolver:
                 graph, out, warm, cap, launches = _capture(
                     self.device, functools.partial(self._eager, F, G),
                     (static,))
+                steps = self.steps(launches)
                 sp.set(warmup_s=warm, capture_s=cap)
             self.captures[nrhs] = dict(warmup_s=warm, capture_s=cap,
-                                       launches=launches)
-            g = graphs[nrhs] = _Graph(graph, (static,), (out,))
+                                       launches=launches, steps=steps)
+            g = graphs[nrhs] = _Graph(graph, (static,), (out,), steps=steps)
         with instrument.span("spfx.solve.graph", nrhs=nrhs) as sp:
             g.inputs[0].copy_(x)
             pair = sp.device_pair()
@@ -398,6 +430,7 @@ class MegaSolver:
             g.graph.replay()
             if pair is not None:
                 pair[1].record()
+            self._count_steps(g.steps)
             # the caller's .cpu() would wait here anyway
             torch.cuda.synchronize(self.device)
             return g.outputs[0].clone()
